@@ -1,0 +1,369 @@
+"""Tag-code and enum model (port copy of deepflow_tpu/datamodel/code.py).
+
+Mirrors the semantics of the reference's metric document model
+(agent/src/metric/document.rs:124-312 — Code bitflags, Direction,
+TapSide, DocumentFlag) and the server twin
+(server/libs/flow-metrics/tag.go:38-98). Values are kept
+bit-compatible so wire encodings and test fixtures are directly comparable
+with the reference; the *representation* here is plain Python enums feeding
+integer columns, not struct fields.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Mapping
+
+import torch
+
+from ..ops.u32 import rotl, shl
+
+
+class Code(enum.IntFlag):
+    """Tag-combination bitflags (document.rs:124-151).
+
+    A document's Code says which tag fields are populated; each metrics
+    table is a fixed Code combination (tag.go:497-520).
+    """
+
+    NONE = 0
+
+    IP = 1 << 0
+    L3_EPC_ID = 1 << 1
+    MAC = 1 << 11
+    GPID = 1 << 15
+
+    IP_PATH = 1 << 20
+    L3_EPC_PATH = 1 << 21
+    MAC_PATH = 1 << 31
+    GPID_PATH = 1 << 35
+
+    DIRECTION = 1 << 40
+    ACL_GID = 1 << 41
+    PROTOCOL = 1 << 42
+    SERVER_PORT = 1 << 43
+    TAP_TYPE = 1 << 45
+    VTAP_ID = 1 << 47
+    TAP_SIDE = 1 << 48
+    TAP_PORT = 1 << 49
+    L7_PROTOCOL = 1 << 51
+
+    TUNNEL_IP_ID = 1 << 62
+
+    def has_edge_tag(self) -> bool:
+        # document.rs:154-156: any *_PATH bit set.
+        return bool(int(self) & 0xFFFFF00000)
+
+
+# The stash only ever sees a handful of Code combinations
+# (collector.rs:156-194). We assign each a small dense id — this is the
+# `CodeID` packed into the reference's fast_id — and use it as a key column.
+class CodeId(enum.IntEnum):
+    NONE = 0
+    SINGLE_IP_PORT = 1
+    SINGLE_MAC_IP_PORT = 2
+    SINGLE_MAC_IP_PORT_APP = 3
+    SINGLE_IP_PORT_APP = 4
+    EDGE_IP_PORT = 5
+    EDGE_MAC_IP_PORT = 6
+    EDGE_IP_PORT_APP = 7
+    EDGE_MAC_IP_PORT_APP = 8
+    ACL = 9
+
+
+_SINGLE_IP = Code.IP | Code.L3_EPC_ID | Code.GPID | Code.VTAP_ID | Code.PROTOCOL | Code.DIRECTION | Code.TAP_TYPE
+_EDGE_IP = (
+    Code.IP_PATH
+    | Code.L3_EPC_PATH
+    | Code.GPID_PATH
+    | Code.VTAP_ID
+    | Code.PROTOCOL
+    | Code.DIRECTION
+    | Code.TAP_TYPE
+    | Code.TAP_PORT
+)
+
+CODE_OF_ID: dict[CodeId, Code] = {
+    CodeId.NONE: Code.NONE,
+    CodeId.SINGLE_IP_PORT: _SINGLE_IP | Code.SERVER_PORT,
+    CodeId.SINGLE_MAC_IP_PORT: _SINGLE_IP | Code.MAC | Code.SERVER_PORT,
+    CodeId.SINGLE_MAC_IP_PORT_APP: _SINGLE_IP | Code.MAC | Code.SERVER_PORT | Code.L7_PROTOCOL,
+    CodeId.SINGLE_IP_PORT_APP: _SINGLE_IP | Code.SERVER_PORT | Code.L7_PROTOCOL,
+    CodeId.EDGE_IP_PORT: _EDGE_IP | Code.SERVER_PORT,
+    CodeId.EDGE_MAC_IP_PORT: _EDGE_IP | Code.MAC_PATH | Code.SERVER_PORT,
+    CodeId.EDGE_IP_PORT_APP: _EDGE_IP | Code.SERVER_PORT | Code.L7_PROTOCOL,
+    CodeId.EDGE_MAC_IP_PORT_APP: _EDGE_IP | Code.MAC_PATH | Code.SERVER_PORT | Code.L7_PROTOCOL,
+    CodeId.ACL: Code.ACL_GID | Code.TUNNEL_IP_ID | Code.VTAP_ID,
+}
+
+
+class DocumentFlag(enum.IntFlag):
+    NONE = 0  # per-minute metrics
+    PER_SECOND_METRICS = 1 << 0
+
+
+# Direction / TapSide bit layout (document.rs:166-239): low 3 bits are
+# client/server/local, bits 3+ are the observation side.
+_SIDE_NODE = 1 << 3
+_SIDE_HYPERVISOR = 2 << 3
+_SIDE_GATEWAY_HYPERVISOR = 3 << 3
+_SIDE_GATEWAY = 4 << 3
+_SIDE_PROCESS = 5 << 3
+_SIDE_APP = 6 << 3
+
+MASK_CLIENT_SERVER = 0x7
+MASK_SIDE = 0xF8
+
+
+class Direction(enum.IntEnum):
+    NONE = 0
+    CLIENT_TO_SERVER = 1 << 0
+    SERVER_TO_CLIENT = 1 << 1
+    LOCAL_TO_LOCAL = 1 << 2
+    CLIENT_NODE_TO_SERVER = (1 << 0) | _SIDE_NODE
+    SERVER_NODE_TO_CLIENT = (1 << 1) | _SIDE_NODE
+    CLIENT_HYPERVISOR_TO_SERVER = (1 << 0) | _SIDE_HYPERVISOR
+    SERVER_HYPERVISOR_TO_CLIENT = (1 << 1) | _SIDE_HYPERVISOR
+    CLIENT_GATEWAY_HYPERVISOR_TO_SERVER = (1 << 0) | _SIDE_GATEWAY_HYPERVISOR
+    SERVER_GATEWAY_HYPERVISOR_TO_CLIENT = (1 << 1) | _SIDE_GATEWAY_HYPERVISOR
+    CLIENT_GATEWAY_TO_SERVER = (1 << 0) | _SIDE_GATEWAY
+    SERVER_GATEWAY_TO_CLIENT = (1 << 1) | _SIDE_GATEWAY
+    CLIENT_PROCESS_TO_SERVER = (1 << 0) | _SIDE_PROCESS
+    SERVER_PROCESS_TO_CLIENT = (1 << 1) | _SIDE_PROCESS
+    CLIENT_APP_TO_SERVER = (1 << 0) | _SIDE_APP
+    SERVER_APP_TO_CLIENT = (1 << 1) | _SIDE_APP
+    APP = _SIDE_APP
+
+    def is_client_to_server(self) -> bool:
+        return (self & MASK_CLIENT_SERVER) == Direction.CLIENT_TO_SERVER
+
+    def is_server_to_client(self) -> bool:
+        return (self & MASK_CLIENT_SERVER) == Direction.SERVER_TO_CLIENT
+
+
+class TapSide(enum.IntEnum):
+    REST = 0
+    CLIENT = 1 << 0
+    SERVER = 1 << 1
+    LOCAL = 1 << 2
+    CLIENT_NODE = (1 << 0) | _SIDE_NODE
+    SERVER_NODE = (1 << 1) | _SIDE_NODE
+    CLIENT_HYPERVISOR = (1 << 0) | _SIDE_HYPERVISOR
+    SERVER_HYPERVISOR = (1 << 1) | _SIDE_HYPERVISOR
+    CLIENT_GATEWAY_HYPERVISOR = (1 << 0) | _SIDE_GATEWAY_HYPERVISOR
+    SERVER_GATEWAY_HYPERVISOR = (1 << 1) | _SIDE_GATEWAY_HYPERVISOR
+    CLIENT_GATEWAY = (1 << 0) | _SIDE_GATEWAY
+    SERVER_GATEWAY = (1 << 1) | _SIDE_GATEWAY
+    CLIENT_PROCESS = (1 << 0) | _SIDE_PROCESS
+    SERVER_PROCESS = (1 << 1) | _SIDE_PROCESS
+    CLIENT_APP = (1 << 0) | _SIDE_APP
+    SERVER_APP = (1 << 1) | _SIDE_APP
+    APP = _SIDE_APP
+
+    @staticmethod
+    def from_direction(direction: "Direction") -> "TapSide":
+        # document.rs:243-264 — TapSide is Direction with the direction
+        # bit kept and NONE → REST.
+        if direction == Direction.NONE:
+            return TapSide.REST
+        return TapSide(int(direction))
+
+
+class SignalSource(enum.IntEnum):
+    # agent/src/common/lookup_key.rs / flow.rs SignalSource
+    PACKET = 0
+    XFLOW = 1
+    EBPF = 3
+    OTEL = 4
+
+
+class MeterId(enum.IntEnum):
+    # meter.rs:23-25 — protobuf meter_id discriminants.
+    FLOW = 1
+    USAGE = 4
+    APP = 5
+
+
+# ---------------------------------------------------------------------------
+# Packed tag words — the fingerprint's dense key representation.
+#
+# The group-by fingerprint used to murmur-fold every raw tag column
+# (25-37 u32 lanes × 2 seeds); most of those columns carry far fewer
+# than 32 meaningful bits (flags, enums, ports, i16 EPC ids). These
+# helpers bin-pack the narrow columns into full u32 words once, so the
+# fold runs over ~22 words instead of ~37 (PERF.md §9d). Packing is
+# injective for in-range values: each field gets a disjoint bit span.
+# Values wider than their declared span would alias, so the excess bits
+# (value >> width) are rotated per-field and XOR-folded into one extra
+# word — in-range inputs leave it all-zero, out-of-range inputs still
+# perturb the hash instead of silently colliding.
+#
+# Widths are CONTRACTS: the decoders (ingest/codec.py, agent/packet.py)
+# and the fanout stage produce values within them. Widening a field is
+# a one-line change here; the excess word keeps even a violated
+# contract collision-safe (astronomically unlikely structured collision
+# instead of a guaranteed one).
+
+# FlowBatch.FLOW_RECORD_TAG_FIELDS → bit width (pre-fanout raw records).
+RAW_TAG_WIDTHS: dict[str, int] = {
+    "timestamp": 32,
+    "global_thread_id": 16,
+    "agent_id": 16,
+    "signal_source": 8,
+    "is_ipv6": 1,
+    "ip0_w0": 32, "ip0_w1": 32, "ip0_w2": 32, "ip0_w3": 32,
+    "ip1_w0": 32, "ip1_w1": 32, "ip1_w2": 32, "ip1_w3": 32,
+    "mac0_hi": 16, "mac0_lo": 32,
+    "mac1_hi": 16, "mac1_lo": 32,
+    "l3_epc_id": 16, "l3_epc_id1": 16,  # i16 sign-folded to u16
+    "gpid0": 32, "gpid1": 32,
+    "pod_id": 32,
+    "protocol": 8,
+    "server_port": 16,
+    "tap_port": 32,
+    "tap_type": 8,
+    "l7_protocol": 8,
+    "direction0": 8, "direction1": 8,  # Direction bit patterns ≤ 0x3f
+    "is_active_host0": 1, "is_active_host1": 1,
+    "is_vip0": 1, "is_vip1": 1,
+    "is_active_service": 1,
+    "endpoint_hash": 32,
+    "biz_type": 8,
+    "time_span": 32,
+}
+
+# TAG_SCHEMA key columns (post-fanout doc rows) → bit width.
+DOC_KEY_WIDTHS: dict[str, int] = {
+    "code_id": 4,  # dense CodeId ≤ 9
+    "meter_id": 4,  # MeterId ≤ 5
+    "global_thread_id": 16,
+    "agent_id": 16,
+    "is_ipv6": 1,
+    "ip0_w0": 32, "ip0_w1": 32, "ip0_w2": 32, "ip0_w3": 32,
+    "ip1_w0": 32, "ip1_w1": 32, "ip1_w2": 32, "ip1_w3": 32,
+    "l3_epc_id": 16, "l3_epc_id1": 16,
+    "mac0_hi": 16, "mac0_lo": 32,
+    "mac1_hi": 16, "mac1_lo": 32,
+    "direction": 8,
+    "protocol": 8,
+    "acl_gid": 16,
+    "server_port": 16,
+    "tap_port": 32,
+    "tap_type": 8,
+    "l7_protocol": 8,
+    "gpid0": 32, "gpid1": 32,
+    "endpoint_hash": 32,
+    "time_span": 32,
+    "biz_type": 8,
+    "signal_source": 8,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TagPackPlan:
+    """Static packing layout: `wide` columns pass through verbatim;
+    each `packed` word is a tuple of (field, shift, width) spans."""
+
+    wide: tuple[str, ...]
+    packed: tuple[tuple[tuple[str, int, int], ...], ...]
+
+    @property
+    def num_words(self) -> int:
+        # +1 for the excess word (present whenever anything is packed)
+        return len(self.wide) + len(self.packed) + (1 if self.packed else 0)
+
+    def field_names(self) -> tuple[str, ...]:
+        return self.wide + tuple(f for w in self.packed for f, _, _ in w)
+
+
+def plan_tag_pack(widths: Mapping[str, int]) -> TagPackPlan:
+    """First-fit-decreasing bin packing of the sub-32-bit columns into
+    u32 words. Deterministic for a given widths table (sorted by
+    descending width then name), so device and host packers agree."""
+    wide = tuple(sorted(f for f, w in widths.items() if w >= 32))
+    narrow = sorted(
+        ((w, f) for f, w in widths.items() if w < 32), key=lambda t: (-t[0], t[1])
+    )
+    bins: list[list[tuple[str, int, int]]] = []
+    fill: list[int] = []
+    for w, f in narrow:
+        for i, used in enumerate(fill):
+            if used + w <= 32:
+                bins[i].append((f, used, w))
+                fill[i] += w
+                break
+        else:
+            bins.append([(f, 0, w)])
+            fill.append(w)
+    return TagPackPlan(wide=wide, packed=tuple(tuple(b) for b in bins))
+
+
+RAW_TAG_PACK = plan_tag_pack(RAW_TAG_WIDTHS)
+DOC_KEY_PACK = plan_tag_pack(DOC_KEY_WIDTHS)
+
+
+def pack_tag_words(cols: Mapping, plan: TagPackPlan) -> list[torch.Tensor]:
+    """Build the packed u32 word list from named [N] u32 lanes.
+
+    `cols` maps field name → [N] int64 tensor holding u32 values (the
+    port's lane rule, ops/u32.py). Returns wide words + packed words +
+    the excess word (see module note), bit-equal to the JAX package's
+    `pack_tag_words`.
+    """
+    words = [cols[f] for f in plan.wide]
+    excess = None
+    rot = 1
+    for spans in plan.packed:
+        word = None
+        for f, shift, width in spans:
+            c = cols[f]
+            part = shl(c & ((1 << width) - 1), shift)
+            word = part if word is None else (word | part)
+            e = rotl(c >> width, rot)
+            excess = e if excess is None else (excess ^ e)
+            # period-31 walk (gcd(7,31)=1) keeps every field's rotation
+            # distinct for plans up to 31 narrow fields — a shared
+            # rotation would let two out-of-contract tuples cancel in
+            # the XOR and collide deterministically
+            rot = (rot + 7) % 31 + 1
+        words.append(word)
+    if excess is not None:
+        words.append(excess)
+    return words
+
+
+class L7Protocol(enum.IntEnum):
+    """Subset of the reference's L7Protocol registry
+    (agent/crates/public/src/l7_protocol.rs). Values used as dense tag ids.
+    """
+
+    UNKNOWN = 0
+    OTHER = 1
+    HTTP1 = 20
+    HTTP2 = 21
+    DUBBO = 40
+    GRPC = 41
+    SOFARPC = 43
+    FASTCGI = 44
+    BRPC = 45
+    TARS = 46
+    SOME_IP = 47
+    MYSQL = 60
+    POSTGRESQL = 61
+    ORACLE = 62
+    REDIS = 80
+    MONGODB = 81
+    MEMCACHED = 82
+    KAFKA = 100
+    MQTT = 101
+    AMQP = 102
+    OPENWIRE = 103
+    NATS = 104
+    PULSAR = 105
+    ZMTP = 106
+    ROCKETMQ = 107
+    DNS = 120
+    TLS = 121
+    PING = 122
+    CUSTOM = 127
