@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one card and hold its kernels to account.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against DIR   # kernel A/B only, see `against`
 
 Needs one CUDA device and the CUDA toolkit (nvcc). Phases, each failing
 loudly with a nonzero exit:
@@ -15,7 +16,12 @@ loudly with a nonzero exit:
    fold shape (N = 2^16 + 2·4·2^15, cap = 2^16), with rows from
    SyntheticFlowGen(10_000, seed=0) through the port's own pre-reduce,
    fanout and stash. Live segments only; SUM lanes within rtol 1e-5
-   (summation order), MAX lanes exact. CUDA-event times, median of 20.
+   (summation order), MAX lanes exact. Times: the call (CUDA events
+   around the wrapper, median of 20), the kernel's device time alone
+   (torch.profiler over 20 calls) and the library's (torch.segment_reduce
+   sum + max over the sorted live rows, two calls, after an index_select
+   for the gather launcher); the bound counts the outputs of live
+   segments only, since absent ones are not written.
 3. The main path at full width, launch counts zeroed just before and
    read just after: the bench.py cycle (batch 2^21, stash 2^16, 2
    appends + 1 fold, unique cap 2^15) through make_ingest_step, then
@@ -29,7 +35,9 @@ loudly with a nonzero exit:
    sketch inputs → span bounds → shared sort → phase mask), on two
    clones of a plane that already holds one batch. hll, cms, the top-K
    lanes after the vote epilogue and the raw challenger tables where a
-   bucket was hit must be exactly equal.
+   bucket was hit must be exactly equal. Times: the call (CUDA events),
+   the kernel's device time and launches per call (torch.profiler; one
+   launch) and the wrapper's host time (perf_counter over queued calls).
 3c. The sketch-on main path, launch counts zeroed just before and read
    just after: the bench.py cycle with the production sketch plane of
    bench/foldbench.py:166-170 through make_ingest_step(sketch_config=),
@@ -43,14 +51,17 @@ loudly with a nonzero exit:
    exactly; then again with the sketch plane on (4b): every block lane
    equal, except that histogram counts may move to an adjacent bin
    (CUDA logf vs the CPU's) — group totals must still agree.
-5. One JSON line of each cycle's records/s, then one of the kernels
-   (with the card's name and power limit), then the last line
+5. One JSON line of each cycle's records/s (with its device idle share
+   and kernel launches), then one of the kernels (with the card's name
+   and power limit; each row with ms, device_ms, plain_ms, bound_ms,
+   bound_by and library_ms), then the last line
    {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import os
 import statistics
@@ -119,6 +130,48 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+
+def device_time(fn, match) -> tuple[float, float]:
+    """Device time per call of the CUDA kernels whose name holds `match`
+    (a string, or None for every kernel the call launches), from
+    torch.profiler over REPS calls after a warmup — without the host work
+    that an event pair around the call encloses — and their launches per
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and (match is None or match in e.key)]
+    check(events and sum(_dev_us(e) for e in events) > 0,
+          f"the profiler saw no device time for {match}")
+    return (sum(_dev_us(e) for e in events) / 1e3 / REPS,
+            sum(e.count for e in events) / REPS)
+
+
+def host_ms(fn, reps: int = 10 * REPS) -> float:
+    """Host time per call: time.perf_counter around `reps` calls that
+    queue without a sync (their device work is far shorter than their
+    host work, so the queue never stalls the loop), synchronised before
+    and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / reps
+
+
 def device_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -172,8 +225,10 @@ def kernel_operands(dev):
 
 
 def kernel_parity(name: str, ops: dict) -> dict:
-    """One launcher at one shape: parity with the plain version, times,
-    and the bytes/operations bound of this input."""
+    """One launcher at one shape: parity with the plain version, the
+    call time (CUDA events around the wrapper), the kernel's device time
+    (profiler), the library time, and the bytes/operations bound of this
+    input."""
     from deepflow_tpu_torch.ops.segreduce import (
         sorted_segment_sum_max, sorted_segment_sum_max_plain,
     )
@@ -189,39 +244,67 @@ def kernel_parity(name: str, ops: dict) -> dict:
     live = ops["live"]
     check(live > 0, f"{name}: no live segments")
     ks, km, ps, pm = ks[:live], km[:live], ps[:live], pm[:live]
-    check(bool(torch.isfinite(ks).all() and torch.isfinite(km).all()),
-          f"{name}: non-finite kernel output")
+    finite = bool(torch.isfinite(ks).all() and torch.isfinite(km).all())
     sum_err = (ks - ps).abs()
-    check(bool((sum_err <= SUM_RTOL * ps.abs()).all()),
-          f"{name}: SUM lanes off by more than rtol {SUM_RTOL}")
-    check(bool(torch.equal(km, pm)), f"{name}: MAX lanes differ")
+    sum_ok = bool((sum_err <= SUM_RTOL * ps.abs()).all())
+    max_ok = bool(torch.equal(km, pm))
+    check(finite, f"{name}: non-finite kernel output")
+    check(sum_ok, f"{name}: SUM lanes off by more than rtol {SUM_RTOL}")
+    check(max_ok, f"{name}: MAX lanes differ")
 
-    m = rows.shape[1]
+    # the library's segmented reduce over the pre-sorted live rows: two
+    # calls (sum, max), plus the index_select that sorts them for the
+    # gather launcher
     n_live = ops["live_rows"]
-    nbytes = (n_live * (4 * m + 4 + (4 if gather else 0)) + 4 * cap
-              + 2 * 4 * cap * m)
+    offsets = torch.cat([fp[:live].long(),
+                         torch.tensor([n_live], dtype=torch.int64, device=fp.device)])
+    live_perm = ops["perm"][:n_live].long()
+
+    def library():
+        x = rows.index_select(0, live_perm) if gather else rows[:n_live]
+        return (torch.segment_reduce(x, "sum", offsets=offsets, axis=0),
+                torch.segment_reduce(x, "max", offsets=offsets, axis=0))
+
+    ls, lm = library()
+    library_agrees = bool((((ls - ps).abs() <= SUM_RTOL * ps.abs()).all())
+                          and torch.equal(lm, pm))
+
+    # bytes this input needs: each kept row read once with its id (and
+    # its perm entry with the gather), first_pos once, and the live
+    # segments' sums and maxs written once (absent ones are garbage by
+    # contract and not written)
+    m = rows.shape[1]
+    nbytes = (n_live * (4 * m + 4 + (4 if gather else 0)) + 4 * cap + 2 * 4 * live * m)
     ops_count = 2 * n_live * m
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops_count / F32_OPS_PER_S * 1e3
+
+    def call():
+        return sorted_segment_sum_max(rows, seg, cap, fp, perm=perm)
+
+    dev_ms, dev_launches = device_time(call, "segreduce")
+    check(dev_launches == 1, f"{name}: {dev_launches} device launches per call")
     return {
+        "parity_ok": finite and sum_ok and max_ok,
         "max_abs_err": float(max(sum_err.max(), (km - pm).abs().max())),
-        "ms": time_ms(lambda: sorted_segment_sum_max(rows, seg, cap, fp, perm=perm)),
+        "ms": time_ms(call), "device_ms": dev_ms,
         "plain_ms": time_ms(
             lambda: sorted_segment_sum_max_plain(rows, seg, cap, fp, perm=perm)),
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
-        "library_ms": None,
+        "library_ms": time_ms(library), "library_agrees": library_agrees,
+        "library": ("torch.segment_reduce sum + max over the sorted live rows, 2 calls"
+                    + (", after index_select through perm" if gather else "")),
         "rows": int(seg.shape[0]), "live_rows": n_live, "m": m, "cap": cap,
-        "live_segments": live,
+        "live_segments": live, "bytes": nbytes,
     }
 
 
-def sketch_kernel_parity(dev) -> dict:
-    """The fused sketch update at the main-path shape: the phase-c
-    operands of a bench.py batch against a plane that already holds one
-    of another flow population (so registers rise and top-K buckets are
-    contested), kernel vs plain on clones, exact; times and the bytes
-    bound of this input."""
+def sketch_operands(dev):
+    """(cfg, plane, keywords) of the fused sketch update at the main-path
+    shape: the phase-c operands of a bench.py batch against a plane that
+    already holds one of another flow population (so registers rise and
+    top-K buckets are contested), built with the port's own functions."""
     from deepflow_tpu_torch.aggregator import sketchplane as sp
     from deepflow_tpu_torch.aggregator.pipeline import batch_prereduce, upload_flow_batch
     from deepflow_tpu_torch.aggregator.stash import sum_max_cols
@@ -230,11 +313,6 @@ def sketch_kernel_parity(dev) -> dict:
     )
     from deepflow_tpu_torch.datamodel.schema import FLOW_METER
     from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
-    from deepflow_tpu_torch.ops.cms import row_slots
-    from deepflow_tpu_torch.ops.sketch_fused import (
-        sketch_update_fused, sketch_update_fused_plain,
-    )
-    from deepflow_tpu_torch.ops.topk import _apply_challengers
 
     cfg = sketch_config()
     sum_cols, max_cols = sum_max_cols(FLOW_METER)
@@ -256,9 +334,24 @@ def sketch_kernel_parity(dev) -> dict:
     _, in_c, _ = sp.phase_masks(sk, window=x["window"], valid=x["valid"],
                                 base_w=x["base_w"], close_w=x["close_w"])
     presorted = sp.shared_sort(x["window"], x["key_hi"], x["key_lo"])
-    kw = sp.fused_operands(sk, in_c, presorted=presorted, **x)
-    n = int(kw["s_slot"].shape[0])
-    live = int(kw["s_mask"].sum())
+    return cfg, sk, sp.fused_operands(sk, in_c, presorted=presorted, **x)
+
+
+def sketch_kernel_parity(dev) -> dict:
+    """The fused sketch update at the main-path shape (`sketch_operands`),
+    kernel vs plain on clones, exact; times and the bytes bound of this
+    input."""
+    from deepflow_tpu_torch.aggregator import sketchplane as sp
+    from deepflow_tpu_torch.ops.cms import row_slots
+    from deepflow_tpu_torch.ops.sketch_fused import (
+        sketch_update_fused, sketch_update_fused_plain,
+    )
+    from deepflow_tpu_torch.ops.topk import _apply_challengers
+
+    cfg, sk, kw = sketch_operands(dev)
+    n = int(kw["s_pos"].shape[0])
+    s_mask = kw["mask"][kw["s_pos"]]
+    live = int(s_mask.sum())
     check(live > 0, "sketch parity: the phase holds no live row")
 
     hk, ck = sk.hll.clone(), sk.cms.clone()
@@ -290,52 +383,44 @@ def sketch_kernel_parity(dev) -> dict:
             check(same(a[kg], b[kg]), "sketch_fused: challenger key/id lanes differ")
         hit += int(kg.sum())
 
-    def timed(fn):
-        h, c = sk.hll.clone(), sk.cms.clone()
-        return time_ms(lambda: fn(h, c, **kw))
+    h, c = sk.hll.clone(), sk.cms.clone()
 
-    def kernel_device_ms():
-        """Device time per call of the two CUDA kernels alone (profiler),
-        without the wrapper's host work that the event time includes."""
-        from torch.profiler import ProfilerActivity, profile
+    def call():
+        return sketch_update_fused(h, c, **kw)
 
-        h, c = sk.hll.clone(), sk.cms.clone()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                sketch_update_fused(h, c, **kw)
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and ("sketch_update_kernel" in e.key or "sketch_resolve_kernel" in e.key))
-        return us / 1e3 / REPS
+    def plain():
+        return sketch_update_fused_plain(h, c, **kw)
+
+    dev_ms, dev_launches = device_time(call, "sketch_fused_kernel")
+    check(dev_launches == 1, f"sketch_fused: {dev_launches} device launches per call")
 
     # bytes this input needs, at the reference kernel's 4-byte u32/i32
     # lanes (the port's int64 lanes are its own cost, not the function's):
-    # the eight row lanes read once and the mask at a byte a row; the
+    # s_pos and the seven row lanes (window, gid, reg, rho, rw, key_hi,
+    # key_lo) at 4 bytes a row and the mask and head flags at one; the
     # id_a/id_b lanes only of the rows that won a bucket (the resolve
     # reads nothing else of them); one read + write of each HLL / CMS cell
     # the live rows and run heads touch; the challenger tables (got + five
     # int32 lanes) written once
     g, m = cfg.num_groups, cfg.hll_m
     d_cms, w_cms = cfg.cms_depth, cfg.cms_width
-    mask, heads = kw["s_mask"], kw["w_head"] != 0
-    hll_cells = torch.unique(((kw["s_slot"] * g + kw["s_gid"]) * m + kw["s_reg"])[mask])
-    cms_flat = (kw["s_slot"][None, :] * (d_cms * w_cms)
+    s_slot = kw["s_win"] % RING
+    heads = kw["head"] & (kw["rw"] != 0)
+    s_pos = kw["s_pos"]
+    hll_cells = torch.unique(((s_slot * g + kw["gid"][s_pos]) * m + kw["reg"][s_pos])[s_mask])
+    cms_flat = (s_slot[None, :] * (d_cms * w_cms)
                 + row_slots(kw["s_hi"], kw["s_lo"], d_cms, w_cms))[:, heads]
     cms_cells = torch.unique(cms_flat)
-    row_lanes = ("s_slot", "s_gid", "s_reg", "s_rho", "w_head", "rw", "s_hi", "s_lo")
-    lane_bytes = 4 * len(row_lanes) * n + n + 2 * 4 * hit
+    lane_bytes = (4 * 8 + 2) * n + 2 * 4 * hit
     tables = cfg.topk_rows * RING * cfg.topk_cols * (1 + 5 * 4)
     nbytes = lane_bytes + 8 * (int(hll_cells.numel()) + int(cms_cells.numel())) + tables
     ops_count = live * (6 * d_cms + 10 * cfg.topk_rows + 4)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops_count / F32_OPS_PER_S * 1e3
     return {
-        "max_abs_err": float(max(errs)),
-        "ms": timed(sketch_update_fused), "plain_ms": timed(sketch_update_fused_plain),
-        "kernel_device_ms": kernel_device_ms(),
+        "parity_ok": max(errs) == 0, "max_abs_err": float(max(errs)),
+        "ms": time_ms(call), "device_ms": dev_ms, "device_launches_per_call": dev_launches,
+        "wrapper_host_ms": host_ms(call), "plain_ms": time_ms(plain),
         "bound_ms": max(bound_bytes_ms, bound_ops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None, "rows": n, "live_rows": live, "heads": int(heads.sum()),
@@ -358,10 +443,7 @@ def profile_cycle(cycle):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-
+    dev_us = _dev_us
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     return {
@@ -545,6 +627,78 @@ def check_sketch_blocks_card_vs_cpu(card: list, host: list) -> int:
     return moved
 
 
+def load_other_port(path: str):
+    """The ops.segreduce and ops.sketch_fused modules of another checkout
+    of this repo (for example the parent commit, unpacked with git
+    archive), imported under their own package name; their kernels build
+    from that checkout's sources into its own _build directory."""
+    import importlib
+    import importlib.util
+
+    root = os.path.join(os.path.abspath(path), "deepflow_tpu_torch")
+    name = "deepflow_tpu_torch_against"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "__init__.py"), submodule_search_locations=[root])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    return (importlib.import_module(f"{name}.ops.segreduce"),
+            importlib.import_module(f"{name}.ops.sketch_fused"))
+
+
+def against(path: str, dev) -> dict:
+    """A/B of this checkout's kernels against another checkout's, on the
+    same card and inputs, in turns (other, this, this, other): per call,
+    the device time of the kernel(s) alone, of everything the call
+    launches, the launches, and the CUDA-event call time. The other
+    checkout's sketch wrapper, where it predates the s_pos signature, takes
+    the sorted lanes of its own (gathered here through s_pos, as its
+    caller gathered them)."""
+    from deepflow_tpu_torch.ops import segreduce, sketch_fused
+
+    o_seg, o_sk = load_other_port(path)
+
+    def turns(fns: dict, match: str) -> dict:
+        res = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            d, n = device_time(fns[who], match)
+            d_all, n_all = device_time(fns[who], None)
+            res[who].append({"device_ms": d, "launches": n, "device_ms_all": d_all,
+                             "launches_all": n_all, "ms": time_ms(fns[who])})
+        return res
+
+    out = {}
+    for shape, o in kernel_operands(dev).items():
+        for name in KERNELS:
+            gather = name == "segreduce_gather"
+            perm = o["perm"] if gather else None
+            rows = o["rows"] if gather else o["rows"].index_select(0, o["perm"].long())
+            args = (rows, o["seg"], o["cap"], o["first_pos"])
+            fns = {"other": lambda a=args, p=perm: o_seg.sorted_segment_sum_max(*a, perm=p),
+                   "this": lambda a=args, p=perm: segreduce.sorted_segment_sum_max(*a, perm=p)}
+            out[f"{name}/{shape}"] = turns(fns, "segreduce")
+            print(json.dumps({"phase": "against", "kernel": name, "shape": shape,
+                              "result": out[f"{name}/{shape}"]}), flush=True)
+
+    _, sk, kw = sketch_operands(dev)
+    p = kw["s_pos"]
+    old_kw = dict(tk_shape=kw["tk_shape"], s_slot=kw["s_win"] % RING, s_gid=kw["gid"][p],
+                  s_reg=kw["reg"][p], s_rho=kw["rho"][p], s_mask=kw["mask"][p],
+                  w_head=torch.where(kw["head"], kw["rw"], 0), rw=kw["rw"], s_hi=kw["s_hi"],
+                  s_lo=kw["s_lo"], s_ia=kw["id_a"][p], s_ib=kw["id_b"][p])
+    if "s_pos" in inspect.signature(o_sk.sketch_update_fused).parameters:
+        old_kw = kw  # the other checkout takes this signature
+    h, c = sk.hll.clone(), sk.cms.clone()
+    fns = {"other": lambda: o_sk.sketch_update_fused(h, c, **old_kw),
+           "this": lambda: sketch_fused.sketch_update_fused(h, c, **kw)}
+    out["sketch_fused"] = turns(fns, "sketch_")
+    out["sketch_fused"]["wrapper_host_ms"] = {
+        who: [host_ms(fns[who]) for _ in range(2)] for who in ("other", "this")}
+    print(json.dumps({"phase": "against", "kernel": "sketch_fused",
+                      "result": out["sketch_fused"]}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -556,6 +710,10 @@ def main() -> int:
     gpu = device_line()
     name = torch.cuda.get_device_name(0)
     print(gpu)
+    if len(sys.argv) == 3 and sys.argv[1] == "--against":
+        against(sys.argv[2], dev)
+        print(json.dumps({"gpu": gpu, "against": sys.argv[2]}))
+        return 0
     t0 = time.perf_counter()
     build.build(build.all_sources())
     build_s = time.perf_counter() - t0
@@ -659,11 +817,11 @@ def main() -> int:
             "name": k, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[k][0][k],
             "launches_per_cycle": launches[k][1]["segreduce"],
-            "parity": {"ok": True, "sum_rtol": SUM_RTOL, "max": "exact",
-                       "against": "sorted_segment_sum_max_plain"},
+            "parity": {"ok": pre["parity_ok"] and fold["parity_ok"], "sum_rtol": SUM_RTOL,
+                       "max": "exact", "against": "sorted_segment_sum_max_plain"},
             "max_abs_err": max(pre["max_abs_err"], fold["max_abs_err"]),
-            "ms": pre["ms"], "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
-            "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
+            **{f: pre[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "library")},
             "shape": "prereduce", "fold": fold,
         })
     sk_name, sk_replaces, sk_source = SKETCH_KERNEL
@@ -671,12 +829,11 @@ def main() -> int:
         "name": sk_name, "route": "cuda", "source": sk_source, "replaces": sk_replaces,
         "launches": main_sketch[sk_name],
         "launches_per_cycle": per_cycle_sketch[sk_name],
-        "parity": {"ok": sketch_res["max_abs_err"] == 0.0, "hll_cms": "exact",
-                   "topk_lanes": "exact",
-                   "against": "sketch_update_fused_plain"},
-        **{k: sketch_res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")},
-        "kernel_device_ms": sketch_res["kernel_device_ms"],
+        "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
+                   "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
+        **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "device_launches_per_call", "wrapper_host_ms")},
         "shape": {k: sketch_res[k] for k in ("rows", "live_rows", "heads", "hll_cells",
                                              "cms_cells", "buckets_hit", "bytes")},
     })
@@ -684,10 +841,13 @@ def main() -> int:
                       "value": rate_gather, "value_pregather": rate_sorted,
                       "unit": "records/s", "gpu": gpu, "batch": BATCH,
                       "capacity": CAPACITY, "accum_batches": ACCUM_BATCHES,
-                      "unique_cap": UNIQUE_CAP}))
+                      "unique_cap": UNIQUE_CAP, "device_idle_share": prof["idle_share"],
+                      "launches_per_cycle": prof["kernel_launches"]}))
     print(json.dumps({"metric": "port_bench_cycle_sketch_records_per_sec",
                       "value": rate_sketch, "unit": "records/s", "gpu": gpu,
-                      "batch": BATCH, "sketch": dataclasses.asdict(sk_cfg)}))
+                      "batch": BATCH, "device_idle_share": prof_sketch["idle_share"],
+                      "launches_per_cycle": prof_sketch["kernel_launches"],
+                      "sketch": dataclasses.asdict(sk_cfg)}))
     print(json.dumps({"gpu": gpu, "kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

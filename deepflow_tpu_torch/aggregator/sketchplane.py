@@ -207,18 +207,18 @@ def _row_lanes(sk: SketchState, mask, window, group, client_hi, client_lo, weigh
 
 
 def _sorted_operands(sk, mask, gid, reg, rho, w, id_a, id_b, presorted) -> dict:
-    """`sketch_update_fused` keywords for one phase over the shared sort.
-    Each row's run weight sums its (window, key) run under THIS phase's
-    mask with int32 adds that wrap like XLA's segment_sum."""
+    """`sketch_update_fused` keywords for one phase over the shared sort:
+    the batch-order lanes, read through `s_pos` by the callee, and the
+    sorted lanes. Each row's run weight sums its (window, key) run under
+    THIS phase's mask with int32 adds that wrap like XLA's segment_sum;
+    the sums are complete before the callee's first atomic."""
     s_win, s_hi, s_lo, s_pos, head, run_id = presorted
     run_w = torch.zeros(s_pos.shape[0], dtype=torch.int32, device=w.device)
     run_w.index_add_(0, run_id, w[s_pos])
-    rw = run_w[run_id]
     return dict(
-        tk_shape=tuple(sk.tk_votes.shape[1:]), s_slot=s_win % sk.ring, s_gid=gid[s_pos],
-        s_reg=reg[s_pos], s_rho=rho[s_pos], s_mask=mask[s_pos],
-        w_head=torch.where(head, rw, 0), rw=rw, s_hi=s_hi, s_lo=s_lo,
-        s_ia=id_a[s_pos], s_ib=id_b[s_pos],
+        tk_shape=tuple(sk.tk_votes.shape[1:]), gid=gid, reg=reg, rho=rho, mask=mask,
+        id_a=id_a, id_b=id_b, s_pos=s_pos, s_win=s_win, head=head, rw=run_w[run_id],
+        s_hi=s_hi, s_lo=s_lo,
     )
 
 

@@ -4,10 +4,12 @@
 and max of `rows` (or of `rows[perm]`), grouped by an ascending
 `seg_id`, with `first_pos` the searchsorted-left head of every output
 segment. On a CUDA tensor it launches the hand-written kernel of
-kernels/segreduce.cu; on a CPU tensor it runs the plain PyTorch version
-beside it (`sorted_segment_sum_max_plain`), which is also the kernel's
-parity reference on the card. Nothing falls back: a CUDA call either
-launches the kernel or raises.
+kernels/segreduce.cu (for short segments a warp streams a span of them
+through a cp.async ring in shared memory, for long ones a block takes
+one); on a CPU tensor it runs the plain PyTorch version beside it
+(`sorted_segment_sum_max_plain`), which is also the kernel's parity
+reference on the card. Nothing falls back: a CUDA call either launches
+the kernel or raises.
 
 The fused-gather launcher reads rows through `perm`; the pre-gathered
 launcher (selected upstream by DEEPFLOW_FUSED_GATHER=0, ops/segment.py)
@@ -15,7 +17,8 @@ takes rows already in sorted order. `LAUNCHES` counts every kernel
 launch per launcher.
 
 CONTRACT (as in the reference): rows of ABSENT segments hold garbage —
-callers mask them by their live-segment prefix; m > 128 raises.
+the kernel does not write them; callers mask them by their live-segment
+prefix; m > 128 raises.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import ctypes
 
 import torch
 
-LANES = 128  # widest meter row the kernel takes (one thread per column)
+LANES = 128  # widest meter row the kernel takes
 
 #: kernel launches per launcher since the last reset
 LAUNCHES = {"segreduce_gather": 0, "segreduce_sorted": 0}
@@ -39,7 +42,7 @@ def _check_width(m: int) -> None:
     if m > LANES:
         raise ValueError(
             f"meter payload has {m} lanes but the segmented-reduce kernel "
-            f"takes at most {LANES} columns (one thread per lane); widen "
+            f"takes at most {LANES} columns; widen "
             f"the kernel before growing a meter schema past {LANES} columns"
         )
 
@@ -127,7 +130,7 @@ def sorted_segment_sum_max(rows, seg_id, num_segments: int, first_pos, *,
     if cap == 0 or m == 0:
         return sums, maxs
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(rows.get_device())
     if perm is None:
         code = lib.segreduce_sorted_launch(
             rows.data_ptr(), seg_id.data_ptr(), first_pos.data_ptr(),

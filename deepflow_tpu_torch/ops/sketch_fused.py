@@ -1,22 +1,32 @@
 """Fused sketch update over the shared-sorted batch — the port of
 deepflow_tpu/ops/sketch_pallas.py.
 
-`sketch_update_fused` keeps the reference launcher's contract: HLL
-register max, count-min run-head adds and the per-hash-row top-K
+`sketch_update_fused` computes what the reference launcher computes:
+HLL register max, count-min run-head adds and the per-hash-row top-K
 challenger scan, over one sketch-plane phase's rows in the plane's
 shared (window, key_hi, key_lo) order, returning (hll, cms,
 challengers) with `challengers` the `ops.topk._apply_challengers` input.
-`hll` [R, G, m] and `cms` [R, D, W] int32 are updated IN PLACE.
+`hll` [R, G, m] and `cms` [R, D, W] int32 are updated IN PLACE. The
+per-row lanes (gid, reg, rho, mask, id_a, id_b) arrive in batch order
+and are read through the shared sort's `s_pos`; the slot (s_win mod R)
+and the run-head weight (head ? rw : 0) are derived from the sorted
+lanes, so the caller writes no sorted copies.
 
 On a CUDA tensor it launches the hand-written kernel of
-kernels/sketch_fused.cu (an update launch and a resolve launch); on a
-CPU tensor it runs `sketch_update_fused_plain` beside it — the
-reference's XLA shared-sort branch (sketchplane.py:922-948), which is
-also the kernel's parity reference on the card. Nothing falls back: a
-CUDA call launches the kernel or raises. The port has no
-DEEPFLOW_FUSED_SKETCH switch and no shape guard: the TPU guard bounded
-SMEM/VMEM, which have no counterpart here; a shape the kernel cannot
-index raises.
+kernels/sketch_fused.cu (one cooperative launch); on a CPU tensor it
+runs `sketch_update_fused_plain` beside it — the gathers through
+`s_pos`, then the reference's XLA shared-sort branch
+(sketchplane.py:922-948), which is also the kernel's parity reference
+on the card. Nothing falls back: a CUDA call launches the kernel or
+raises. The port has no DEEPFLOW_FUSED_SKETCH switch and no shape
+guard: the TPU guard bounded SMEM/VMEM, which have no counterpart here;
+a shape the kernel cannot index raises.
+
+The kernel takes a zeroed [d·R·C + 1] scratch (the challenger table and
+its grid-barrier word) and zeroes the previous call's, so the wrapper
+keeps two per (device, shape), alternates them and never clears either,
+beside an [N] id scratch the kernel writes before it reads; calls that
+share them must run on one stream, as the plane's do.
 
 The two versions agree bit for bit on hll, cms and every challenger
 lane, with one exception that no caller can see: for a bucket no live
@@ -31,11 +41,11 @@ import ctypes
 
 import torch
 
+from ..kernels.build import check_launch, load
 from .cms import row_slots
 from .topk import topk_challengers_presorted
 
-#: kernel launches since the last reset (one = the update kernel and its
-#: resolve epilogue)
+#: kernel launches since the last reset (one per call on a CUDA tensor)
 LAUNCHES = {"sketch_fused": 0}
 
 
@@ -58,105 +68,128 @@ def hll_cms_scatter(hll, cms, slot, gid, reg, rho, mask, key_hi, key_lo, weight)
     cms.view(-1).index_add_(0, flat.reshape(-1), weight[None, :].expand(d_cms, -1).reshape(-1))
 
 
-def sketch_update_fused_plain(hll, cms, *, tk_shape, s_slot, s_gid, s_reg, s_rho,
-                              s_mask, w_head, rw, s_hi, s_lo, s_ia, s_ib):
-    """Plain PyTorch version: a masked HLL scatter-max, a count-min
-    scatter-add of the run-head weights (0 off the heads), and
-    `topk_challengers_presorted`."""
+def sketch_update_fused_plain(hll, cms, *, tk_shape, gid, reg, rho, mask, id_a, id_b,
+                              s_pos, s_win, head, rw, s_hi, s_lo):
+    """Plain PyTorch version: the gathers through `s_pos`, then a masked
+    HLL scatter-max, a count-min scatter-add of the run-head weights (0
+    off the heads), and `topk_challengers_presorted`."""
     d_tk, c_tk = tk_shape
-    hll_cms_scatter(hll, cms, s_slot, s_gid, s_reg, s_rho, s_mask, s_hi, s_lo, w_head)
-    challengers = (topk_challengers_presorted(s_slot, s_hi, s_lo, s_ia, s_ib, rw,
-                                              s_mask, hll.shape[0], d_tk, c_tk)
+    s_slot, s_mask = s_win % hll.shape[0], mask[s_pos]
+    hll_cms_scatter(hll, cms, s_slot, gid[s_pos], reg[s_pos], rho[s_pos], s_mask, s_hi,
+                    s_lo, torch.where(head, rw, 0))
+    challengers = (topk_challengers_presorted(s_slot, s_hi, s_lo, id_a[s_pos], id_b[s_pos],
+                                              rw, s_mask, hll.shape[0], d_tk, c_tk)
                    if d_tk else [])
     return hll, cms, challengers
 
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_LIB = None
+#: (device index, buckets) → [the kernel's two scratch tables
+#: [2, buckets + 1] int64, the index of the zeroed one, the id scratch]
+_TABLES: dict = {}
 
 
 def _lib():
-    from ..kernels.build import load
-
-    lib = load("sketch_fused")
-    if not getattr(lib, "_df_bound", False):
-        lib.sketch_update_launch.argtypes = [_PTR] * 12 + [_INT] * 8 + [_PTR]
-        lib.sketch_update_launch.restype = _INT
-        lib.sketch_resolve_launch.argtypes = [_PTR] * 11 + [_INT, _PTR]
-        lib.sketch_resolve_launch.restype = _INT
-        lib._df_bound = True
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = load("sketch_fused")
+        lib.sketch_fused_launch.argtypes = [_PTR] * 19 + [_INT] * 8 + [_PTR]
+        lib.sketch_fused_launch.restype = _INT
+        _LIB = lib
+    return _LIB
 
 
-def _require(t: torch.Tensor, name: str, dtype, device, shape) -> None:
-    if (t.dtype != dtype or t.device != device or not t.is_contiguous()
-            or tuple(t.shape) != tuple(shape)):
+def _require(t: torch.Tensor, name: str, dtype, device: int, shape) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on CUDA
+    device index `device` (get_device() is -1 on the CPU)."""
+    if (t.dtype is not dtype or t.get_device() != device or not t.is_contiguous()
+            or t.shape != shape):
         raise ValueError(
             f"{name} must be a contiguous {dtype} tensor of shape {tuple(shape)} "
-            f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"on cuda:{device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})"
         )
 
 
-def sketch_update_fused(hll, cms, *, tk_shape, s_slot, s_gid, s_reg, s_rho, s_mask,
-                        w_head, rw, s_hi, s_lo, s_ia, s_ib):
-    """hll [R, G, m] / cms [R, D, W] int32 updated in place over the
-    SORTED phase lanes [N]: s_slot/s_gid/s_reg/s_rho and the u32 lanes
-    s_hi/s_lo/s_ia/s_ib int64, s_mask bool, w_head/rw int32. `tk_shape`
-    is (topk_rows, topk_cols). Returns (hll, cms, challengers).
+def _scratch(dev: torch.device, buckets: int, n: int) -> list:
+    """[tables [2, buckets + 1] int64, index of the zeroed one, id
+    scratch of at least n int64]."""
+    key = (dev.index, buckets)
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = [torch.zeros((2, buckets + 1), dtype=torch.int64, device=dev), 0,
+                            None]
+    if t[2] is None or t[2].numel() < n:
+        t[2] = torch.empty((max(n, 1),), dtype=torch.int64, device=dev)
+    return t
+
+
+_I64, _I32, _BOOL = torch.int64, torch.int32, torch.bool
+
+
+def sketch_update_fused(hll, cms, *, tk_shape, gid, reg, rho, mask, id_a, id_b,
+                        s_pos, s_win, head, rw, s_hi, s_lo):
+    """hll [R, G, m] / cms [R, D, W] int32 updated in place over one
+    phase. Batch-order lanes [N_rows]: gid/reg/rho and the u32 lanes
+    id_a/id_b int64, mask bool. Sorted lanes [N]: s_pos int64 (sorted
+    position → batch row), the u32 lanes s_win/s_hi/s_lo int64, head
+    bool (run heads), rw int32 (each row's run weight under `mask`).
+    `tk_shape` is (topk_rows, topk_cols). Returns (hll, cms,
+    challengers).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    kw = dict(tk_shape=tk_shape, s_slot=s_slot, s_gid=s_gid, s_reg=s_reg,
-              s_rho=s_rho, s_mask=s_mask, w_head=w_head, rw=rw, s_hi=s_hi,
-              s_lo=s_lo, s_ia=s_ia, s_ib=s_ib)
     if hll.device.type == "cpu":
-        return sketch_update_fused_plain(hll, cms, **kw)
+        return sketch_update_fused_plain(
+            hll, cms, tk_shape=tk_shape, gid=gid, reg=reg, rho=rho, mask=mask, id_a=id_a,
+            id_b=id_b, s_pos=s_pos, s_win=s_win, head=head, rw=rw, s_hi=s_hi, s_lo=s_lo)
     if hll.device.type != "cuda":
         raise ValueError(f"no sketch kernel for device {hll.device}")
     dev = hll.device
+    idx = hll.get_device()
     ring, g, m = hll.shape
-    d_cms, w_cms = cms.shape[1], cms.shape[2]
+    _, d_cms, w_cms = cms.shape
     d_tk, c_tk = tk_shape
-    n = int(s_slot.shape[0])
+    n_rows, n = gid.shape[0], s_pos.shape[0]
     if d_tk < 1:
         raise ValueError("the fused sketch update needs the top-K lane (topk_rows ≥ 1)")
-    if max(n, hll.numel(), cms.numel(), d_tk * ring * c_tk) >= 2 ** 31:
-        raise ValueError("sketch plane sizes exceed the kernel's int32 indexing")
-    _require(hll, "hll", torch.int32, dev, (ring, g, m))
-    _require(cms, "cms", torch.int32, dev, (ring, d_cms, w_cms))
-    for name in ("s_slot", "s_gid", "s_reg", "s_rho", "s_hi", "s_lo", "s_ia", "s_ib"):
-        _require(kw[name], name, torch.int64, dev, (n,))
-    _require(s_mask, "s_mask", torch.bool, dev, (n,))
-    _require(w_head, "w_head", torch.int32, dev, (n,))
-    _require(rw, "rw", torch.int32, dev, (n,))
-
     buckets = d_tk * ring * c_tk
-    best = torch.zeros((buckets,), dtype=torch.int64, device=dev)
-    got = torch.empty((buckets,), dtype=torch.bool, device=dev)
-    lanes = torch.empty((5, buckets), dtype=torch.int32, device=dev)
-    h_hi, h_lo, h_ia, h_ib, hw = lanes
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    from ..kernels.build import check_launch
+    if max(n, n_rows, hll.numel(), cms.numel(), 5 * buckets) >= 2 ** 31:
+        raise ValueError("sketch plane sizes exceed the kernel's int32 indexing")
+    _require(hll, "hll", _I32, idx, (ring, g, m))
+    _require(cms, "cms", _I32, idx, (ring, d_cms, w_cms))
+    rows, srt = (n_rows,), (n,)
+    for t, name, dtype, shape in (
+            (gid, "gid", _I64, rows), (reg, "reg", _I64, rows), (rho, "rho", _I64, rows),
+            (mask, "mask", _BOOL, rows), (id_a, "id_a", _I64, rows),
+            (id_b, "id_b", _I64, rows), (s_pos, "s_pos", _I64, srt),
+            (s_win, "s_win", _I64, srt), (head, "head", _BOOL, srt), (rw, "rw", _I32, srt),
+            (s_hi, "s_hi", _I64, srt), (s_lo, "s_lo", _I64, srt)):
+        _require(t, name, dtype, idx, shape)
 
-    code = lib.sketch_update_launch(
-        s_slot.data_ptr(), s_gid.data_ptr(), s_reg.data_ptr(), s_rho.data_ptr(),
-        s_mask.data_ptr(), w_head.data_ptr(), rw.data_ptr(), s_hi.data_ptr(),
-        s_lo.data_ptr(), hll.data_ptr(), cms.data_ptr(), best.data_ptr(),
-        n, ring, g, m, d_cms, w_cms, d_tk, c_tk, stream,
+    # one buffer: got (bool, padded to 16 bytes), then [d, 5, R·C] int32
+    # lanes (hi, lo, ia, ib, hw per hash row)
+    got_bytes = (buckets + 15) & ~15
+    out = torch.empty((got_bytes + 20 * buckets,), dtype=torch.uint8, device=dev)
+    got, lanes = out[:buckets].view(_BOOL), out[got_bytes:].view(_I32)
+    lib = _lib()
+    scratch = _scratch(dev, buckets, n)
+    tables, zeroed, ids = scratch
+    base = tables.data_ptr()
+    code = lib.sketch_fused_launch(
+        gid.data_ptr(), reg.data_ptr(), rho.data_ptr(), mask.data_ptr(), id_a.data_ptr(),
+        id_b.data_ptr(), s_pos.data_ptr(), s_win.data_ptr(), head.data_ptr(),
+        rw.data_ptr(), s_hi.data_ptr(), s_lo.data_ptr(), hll.data_ptr(), cms.data_ptr(),
+        base + 8 * (buckets + 1) * zeroed, base + 8 * (buckets + 1) * (1 - zeroed),
+        ids.data_ptr(), got.data_ptr(),
+        lanes.data_ptr(), n, ring, g, m, d_cms, w_cms, d_tk, c_tk,
+        torch._C._cuda_getCurrentRawStream(idx),  # the current stream's handle
     )
-    check_launch(lib, code, "sketch_update")
-    code = lib.sketch_resolve_launch(
-        best.data_ptr(), s_hi.data_ptr(), s_lo.data_ptr(), s_ia.data_ptr(),
-        s_ib.data_ptr(), got.data_ptr(), h_hi.data_ptr(), h_lo.data_ptr(),
-        h_ia.data_ptr(), h_ib.data_ptr(), hw.data_ptr(), buckets, stream,
-    )
-    check_launch(lib, code, "sketch_resolve")
+    check_launch(lib, code, "sketch_fused")
+    scratch[1] = 1 - zeroed
     LAUNCHES["sketch_fused"] += 1
-    per_row = ring * c_tk
-    challengers = [
-        tuple(x[r * per_row:(r + 1) * per_row]
-              for x in (got, h_hi, h_lo, h_ia, h_ib, hw))
-        for r in range(d_tk)
-    ]
+    gots = got.view(d_tk, -1).unbind(0)
+    per_row = lanes.view(5 * d_tk, -1).unbind(0)
+    challengers = [(gots[r], *per_row[5 * r:5 * r + 5]) for r in range(d_tk)]
     return hll, cms, challengers

@@ -85,6 +85,9 @@ def topk_challengers_presorted(s_slot, s_hi, s_lo, s_ia, s_ib, rw, s_mask,
     n = s_hi.shape[0]
     dev = s_hi.device
     segs = r_ring * c
+    if n == 0:  # no row: no bucket got a challenger
+        none = torch.zeros((segs,), dtype=torch.int32, device=dev)
+        return [(none != 0,) + (none,) * 5 for _ in range(d)]
     iota = torch.arange(n, dtype=torch.int64, device=dev)
     challengers = []
     for r in range(d):

@@ -28,43 +28,53 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-def test_sketch_fused_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(41)
-    n, ring, g, m, d_cms, w_cms, d_tk, c_tk = 4096, 4, 4, 256, 4, 1024, 2, 64
+def _sketch_case(dev, seed, n, *, ring=4, g=4, m=256, d_cms=4, w_cms=1024, d_tk=2, c_tk=64,
+                 keys=300, weights=(0, 3, 3, 90, 2 ** 31 - 1), mask_heads=False):
+    """One phase's `sketch_update_fused` keywords on the card, built as
+    the plane builds them (shared sort, run sums under the mask), a
+    filled plane and top-K lanes. `mask_heads` masks out the head row of
+    every other run while its other rows stay live."""
+    rng = np.random.default_rng(seed)
     u32 = lambda size: rng.integers(0, 2 ** 32, size, dtype=np.uint64).astype(np.uint32)
-    kid = rng.integers(0, 300, n)
-    win, hi, lo = (from_numpy_u32(x, cuda) for x in (
+    kid = rng.integers(0, keys, n)
+    win, hi, lo = (from_numpy_u32(x, dev) for x in (
         rng.integers(50, 54, n), (kid * 2654435761 + 7).astype(np.uint32),
         (kid ^ 0x9E3779B9).astype(np.uint32)))
-    perm = sort_perm(win, hi, lo)
-    s_win, s_hi, s_lo = win[perm], hi[perm], lo[perm]
-    head = torch.ones(n, dtype=torch.bool, device=cuda)
+    s_pos = sort_perm(win, hi, lo)
+    s_win, s_hi, s_lo = win[s_pos], hi[s_pos], lo[s_pos]
+    head = torch.ones(n, dtype=torch.bool, device=dev)
     head[1:] = (s_win[1:] != s_win[:-1]) | (s_hi[1:] != s_hi[:-1]) | (s_lo[1:] != s_lo[:-1])
     run_id = torch.cumsum(head, 0) - 1
-    w = torch.from_numpy(rng.choice([0, 3, 3, 90, 2 ** 31 - 1], n).astype(np.int32)).to(cuda)
-    mask = torch.from_numpy(rng.random(n) > 0.1).to(cuda)
+    mask = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    if mask_heads and n:
+        heads = s_pos[head & (run_id % 2 == 0)]
+        mask[heads] = False
+        mask[s_pos[~head]] = True
+    w = torch.from_numpy(rng.choice(weights, n).astype(np.int32)).to(dev)
     w = torch.where(mask, w, 0)
-    run_w = torch.zeros(n, dtype=torch.int32, device=cuda).index_add_(0, run_id, w)
-    rw = run_w[run_id]
+    run_w = torch.zeros(n, dtype=torch.int32, device=dev).index_add_(0, run_id, w[s_pos])
     kw = dict(
-        tk_shape=(d_tk, c_tk), s_slot=s_win % ring,
-        s_gid=torch.from_numpy(rng.integers(0, g, n)).to(cuda),
-        s_reg=torch.from_numpy(rng.integers(0, m, n)).to(cuda),
-        s_rho=torch.from_numpy(rng.integers(1, 34, n)).to(cuda), s_mask=mask,
-        w_head=torch.where(head, rw, 0), rw=rw, s_hi=s_hi, s_lo=s_lo,
-        s_ia=from_numpy_u32(u32(n), cuda), s_ib=from_numpy_u32(u32(n), cuda),
+        tk_shape=(d_tk, c_tk), gid=torch.from_numpy(rng.integers(0, g, n)).to(dev),
+        reg=torch.from_numpy(rng.integers(0, m, n)).to(dev),
+        rho=torch.from_numpy(rng.integers(1, 34, n)).to(dev), mask=mask,
+        id_a=from_numpy_u32(u32(n), dev), id_b=from_numpy_u32(u32(n), dev), s_pos=s_pos,
+        s_win=s_win, head=head, rw=run_w[run_id], s_hi=s_hi, s_lo=s_lo,
     )
-    hll = torch.from_numpy(rng.integers(0, 20, (ring, g, m)).astype(np.int32)).to(cuda)
-    cms = torch.from_numpy(rng.integers(0, 999, (ring, d_cms, w_cms)).astype(np.int32)).to(cuda)
-    lanes = tuple(torch.from_numpy(x.astype(np.int32)).to(cuda) for x in (
+    hll = torch.from_numpy(rng.integers(0, 20, (ring, g, m)).astype(np.int32)).to(dev)
+    cms = torch.from_numpy(rng.integers(0, 999, (ring, d_cms, w_cms)).astype(np.int32)).to(dev)
+    lanes = tuple(torch.from_numpy(x.astype(np.int32)).to(dev) for x in (
         rng.integers(0, 50, (ring, d_tk, c_tk)),
         *(u32((ring, d_tk, c_tk)).view(np.int32) for _ in range(4))))
-    sketch_fused.reset_launch_counts()
+    return kw, hll, cms, lanes
+
+
+def _assert_sketch_equal(kw, hll, cms, lanes):
+    """Kernel vs plain on clones: hll, cms, the top-K lanes after the
+    vote, got/hw everywhere and the key/id lanes where got. Returns the
+    kernel's challengers."""
     hk, ck, ch_k = sketch_fused.sketch_update_fused(hll.clone(), cms.clone(), **kw)
     hp, cp, ch_p = sketch_fused.sketch_update_fused_plain(hll.clone(), cms.clone(), **kw)
     torch.cuda.synchronize()
-    assert sketch_fused.LAUNCHES["sketch_fused"] == 1
     assert torch.equal(hk, hp) and torch.equal(ck, cp)
     for a, b in zip(topk._apply_challengers(lanes, ch_k), topk._apply_challengers(lanes, ch_p)):
         assert torch.equal(a, b)
@@ -72,6 +82,52 @@ def test_sketch_fused_kernel_matches_plain(cuda):
         assert torch.equal(kg, pg) and torch.equal(k_hw, p_hw)
         for a, b in zip(k_lanes, p_lanes):
             assert torch.equal(a[kg], b[kg])
+    return ch_k
+
+
+@pytest.mark.cuda
+def test_sketch_fused_kernel_matches_plain(cuda):
+    kw, hll, cms, lanes = _sketch_case(cuda, 41, 4096)
+    sketch_fused.reset_launch_counts()
+    _assert_sketch_equal(kw, hll, cms, lanes)
+    assert sketch_fused.LAUNCHES["sketch_fused"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 1000, 600_000],
+                         ids=["empty", "one_row", "ragged", "past_one_grid"])
+def test_sketch_fused_kernel_row_counts(cuda, n):
+    """No row, one row, a count that is no multiple of the block, and
+    more rows than one resident grid covers (grid-stride loops)."""
+    _assert_sketch_equal(*_sketch_case(cuda, 42 + n % 97, n, keys=max(1, n // 8)))
+
+
+@pytest.mark.cuda
+def test_sketch_fused_kernel_masked_heads_and_wrapping_run_weights(cuda):
+    """Runs whose head row is masked out (the count-min add still
+    happens at the head, HLL and top-K skip it) and run weights that sum
+    past 2^31 and wrap."""
+    kw, hll, cms, lanes = _sketch_case(cuda, 43, 5000, keys=40, mask_heads=True,
+                                       weights=(2 ** 31 - 1, 2 ** 30, 7))
+    assert bool((kw["rw"] < 0).any())  # some run sum wrapped
+    _assert_sketch_equal(kw, hll, cms, lanes)
+
+
+@pytest.mark.cuda
+def test_sketch_fused_kernel_leaves_its_table_zeroed(cuda):
+    """The same inputs twice in a row give identical challengers: each
+    call found its persistent scratch zeroed (by the call before it), and
+    the scratch the next call takes is zero again."""
+    kw, hll, cms, _ = _sketch_case(cuda, 44, 3000)
+    _, _, first = sketch_fused.sketch_update_fused(hll.clone(), cms.clone(), **kw)
+    first = [tuple(x.clone() for x in row) for row in first]
+    _, _, second = sketch_fused.sketch_update_fused(hll.clone(), cms.clone(), **kw)
+    torch.cuda.synchronize()
+    for a_row, b_row in zip(first, second):
+        for a, b in zip(a_row, b_row):
+            assert torch.equal(a, b)
+    tables, zeroed, _ = sketch_fused._TABLES[(cuda.index or 0, 2 * 4 * 64)]
+    assert not bool(tables[zeroed].any()) and bool(tables[1 - zeroed].any())
 
 
 @pytest.mark.cuda
@@ -93,3 +149,56 @@ def test_segreduce_kernels_match_plain(cuda, gather):
     live = min(int(num_seg), cap)
     # integer-valued f32 rows: every partial sum is exact in any order
     assert torch.equal(ks[:live], ps[:live]) and torch.equal(km[:live], pm[:live])
+
+
+def _segments(dev, lengths, m, *, cap=None, dead=5, nan_rows=0, seed=0):
+    """Segmented-reduce operands with the given live segment lengths (in
+    id order), `dead` rows of ids ≥ cap after them, rows in a random
+    original order (perm) with integer values (exact sums) and
+    `nan_rows` NaN cells."""
+    rng = np.random.default_rng(seed)
+    cap = len(lengths) if cap is None else cap
+    seg = np.concatenate([np.repeat(np.arange(len(lengths)), lengths),
+                          np.full(dead, cap + 1)]).astype(np.int32)
+    n = seg.shape[0]
+    first_pos = np.searchsorted(seg, np.arange(cap), side="left").astype(np.int32)
+    perm = rng.permutation(n).astype(np.int32)
+    rows = rng.integers(-1000, 1000, (n, m)).astype(np.float32)
+    if nan_rows:
+        rows[rng.integers(0, n, nan_rows), rng.integers(0, m, nan_rows)] = np.nan
+    t = lambda x: torch.from_numpy(x).to(dev)
+    return t(rows), t(perm), t(seg), t(first_pos), cap, np.asarray(lengths) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", [True, False], ids=["gather", "sorted"])
+@pytest.mark.parametrize("m", [1, 62, 128])
+@pytest.mark.parametrize("case", ["short", "crossing", "long", "absent", "last", "nan"])
+def test_segreduce_kernel_segment_shapes(cuda, gather, m, case):
+    """1-row and 8-row segments, segments that cross a staging batch,
+    one longer than a warp's ring, absent segments (interior and past the
+    live ones), a long last segment (cap = live), NaN cells — each
+    against the plain version on the CPU (SUM exact on integer rows, MAX
+    exact, NaN where the plain version has NaN)."""
+    rng = np.random.default_rng(m)
+    lengths, cap = {
+        "short": (rng.choice([1, 8], 3000), None),
+        "crossing": (rng.integers(14, 40, 400), None),
+        "long": ([3, 5000, 2, 70], None),
+        "absent": (rng.choice([0, 0, 1, 3, 8], 2000), 2600),
+        "last": (list(rng.integers(1, 9, 200)) + [3000], None),
+        "nan": (rng.integers(1, 50, 300), None),
+    }[case]
+    rows, perm, seg, first_pos, cap, live = _segments(
+        cuda, lengths, m, cap=cap, nan_rows=500 if case == "nan" else 0, seed=m)
+    x = rows if gather else rows.index_select(0, perm.long())
+    p = perm if gather else None
+    ks, km = segreduce.sorted_segment_sum_max(x, seg, cap, first_pos, perm=p)
+    ps, pm = segreduce.sorted_segment_sum_max_plain(
+        x.cpu(), seg.cpu(), cap, first_pos.cpu(), perm=None if p is None else p.cpu())
+    torch.cuda.synchronize()
+    keep = torch.from_numpy(np.flatnonzero(live))
+    ks, km = ks.cpu()[keep], km.cpu()[keep]
+    assert torch.equal(ks.isnan(), ps[keep].isnan()) and torch.equal(km.isnan(), pm[keep].isnan())
+    assert torch.equal(ks.nan_to_num(), ps[keep].nan_to_num())
+    assert torch.equal(km.nan_to_num(), pm[keep].nan_to_num())

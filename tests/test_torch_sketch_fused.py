@@ -38,9 +38,12 @@ SHAPES = dict(ring=4, g=4, m=64, d_cms=3, w_cms=128, d_tk=2, c_tk=8)
 
 
 def _phase_lanes(seed: int, n: int, huge: bool):
-    """Seeded phase lanes in the shared (window, hi, lo) order, as numpy:
-    few distinct keys (long runs), keys colliding in the small top-K
-    table with tied run weights, zero weights, ~15% masked rows."""
+    """Seeded lanes of one phase: few distinct keys (long runs), keys
+    colliding in the small top-K table with tied run weights, zero
+    weights, ~15% masked rows. Returns (sorted, port): the reference's
+    lanes in the shared (window, hi, lo) order (each batch lane fed as
+    lane[s_pos]), and the port's keywords — the batch-order lanes, s_pos
+    and the sorted lanes — as numpy."""
     rng = np.random.default_rng(seed)
     win = rng.integers(100, 104, n).astype(np.uint32)
     kid = rng.integers(0, 24, n)
@@ -52,29 +55,32 @@ def _phase_lanes(seed: int, n: int, huge: bool):
     mask = rng.random(n) > 0.15
     client_hi, client_lo = (rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
                             for _ in range(2))
-    gid = rng.integers(0, SHAPES["g"], n)
+    gid = rng.integers(0, SHAPES["g"], n).astype(np.int64)
     id_a = (kid + 1000).astype(np.uint32)
     id_b = ((443 << 16) | 6) * np.ones(n, np.uint32)
+    m = SHAPES["m"]
+    reg = (client_lo & (m - 1)).astype(np.int64)
+    rho = np.asarray([33 - int(x).bit_length() if x else 33 for x in client_hi], np.int64)
 
     perm = sort_perm(*(from_numpy_u32(x, "cpu") for x in (win, hi, lo))).numpy()
-    s = {k: v[perm] for k, v in dict(win=win, hi=hi, lo=lo, mask=mask, gid=gid,
-                                     id_a=id_a, id_b=id_b).items()}
+    s = {k: v[perm] for k, v in dict(win=win, hi=hi, lo=lo).items()}
     w = np.where(mask, saturate_i32(torch.from_numpy(weight)).numpy(), 0)[perm]
     head = np.r_[True, (s["win"][1:] != s["win"][:-1]) | (s["hi"][1:] != s["hi"][:-1])
-                 | (s["lo"][1:] != s["lo"][:-1])]
+                 | (s["lo"][1:] != s["lo"][:-1])][:n]
     run_id = np.cumsum(head) - 1
     run_w = np.zeros(n, np.int64)
     np.add.at(run_w, run_id, w.astype(np.int64))
     rw = ((run_w[run_id] + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)  # int32 wrap
-    m = SHAPES["m"]
-    reg = (client_lo[perm] & (m - 1)).astype(np.int64)
-    rho = np.asarray([33 - int(x).bit_length() if x else 33 for x in client_hi[perm]])
-    return dict(
-        s_slot=(s["win"] % SHAPES["ring"]).astype(np.int64), s_gid=s["gid"].astype(np.int64),
-        s_reg=reg, s_rho=rho.astype(np.int64), s_mask=s["mask"],
+    ref = dict(
+        s_slot=(s["win"] % SHAPES["ring"]).astype(np.int64), s_gid=gid[perm],
+        s_reg=reg[perm], s_rho=rho[perm], s_mask=mask[perm],
         w_head=np.where(head, rw, 0).astype(np.int32), rw=rw, s_hi=s["hi"], s_lo=s["lo"],
-        s_ia=s["id_a"], s_ib=s["id_b"],
+        s_ia=id_a[perm], s_ib=id_b[perm],
     )
+    port = dict(gid=gid, reg=reg, rho=rho, mask=mask, id_a=id_a, id_b=id_b,
+                s_pos=perm.astype(np.int64), s_win=s["win"], head=head, rw=rw,
+                s_hi=s["hi"], s_lo=s["lo"])
+    return ref, port
 
 
 def _state(seed: int, filled: bool):
@@ -87,7 +93,7 @@ def _state(seed: int, filled: bool):
     keys = [rng.integers(0, 2 ** 32, (r, dt, c), dtype=np.uint64).astype(np.uint32)
             for _ in range(4)]
     if filled:  # some buckets already hold keys the batch will match
-        lanes = _phase_lanes(seed, 64, False)
+        lanes, _ = _phase_lanes(seed, 64, False)
         keys[0][0, 0, :4] = lanes["s_hi"][:4]
         keys[1][0, 0, :4] = lanes["s_lo"][:4]
     return hll.astype(np.int32), cms.astype(np.int32), [votes.astype(np.int32)] + keys
@@ -123,7 +129,7 @@ def _reference(hll, cms, lanes, x, *, pallas: bool):
 
 
 def _port(hll, cms, lanes, x):
-    t = {k: (from_numpy_u32(v, "cpu") if k in ("s_hi", "s_lo", "s_ia", "s_ib")
+    t = {k: (from_numpy_u32(v, "cpu") if k in ("id_a", "id_b", "s_win", "s_hi", "s_lo")
              else torch.from_numpy(np.ascontiguousarray(v))) for k, v in x.items()}
     hll_t, cms_t = torch.from_numpy(hll.copy()), torch.from_numpy(cms.copy())
     hll_t, cms_t, ch = sketch_fused.sketch_update_fused(
@@ -135,17 +141,21 @@ def _port(hll, cms, lanes, x):
 
 @pytest.mark.parametrize("pallas", [True, False], ids=["pallas_interpret", "xla_presorted"])
 @pytest.mark.parametrize("seed,n,huge,filled", [(11, 256, False, False), (12, 384, True, True),
-                                                (13, 200, True, False), (14, 512, False, True)])
+                                                (13, 200, True, False), (14, 512, False, True),
+                                                (15, 1, False, True), (16, 333, True, True)])
 def test_plain_matches_reference(pallas, seed, n, huge, filled):
-    x = _phase_lanes(seed, n, huge)
+    """The port takes the batch-order lanes and s_pos; the reference is
+    fed lane[s_pos]."""
+    x, port = _phase_lanes(seed, n, huge)
     hll, cms, lanes = _state(seed, filled)
     want = _reference(hll, cms, lanes, x, pallas=pallas)
-    got = _port(hll, cms, lanes, x)
+    got = _port(hll, cms, lanes, port)
     np.testing.assert_array_equal(want[0], got[0], err_msg="hll")
     np.testing.assert_array_equal(want[1], got[1], err_msg="cms")
     for name, a, b in zip(("votes", "hi", "lo", "ia", "ib"), want[2], got[2]):
         np.testing.assert_array_equal(a.view(np.int32), b, err_msg=name)
-    assert (got[0] != hll).any() and (got[1] != cms).any()
+    if n > 1:
+        assert (got[0] != hll).any() and (got[1] != cms).any()
     if huge:  # a saturated weight's run wrapped: the case the cast pins
         assert (x["rw"] < 0).any() or (x["rw"] == 2 ** 31 - 1).any()
 
@@ -154,7 +164,7 @@ def test_plain_raw_challengers_match_xla_branch():
     """Before the epilogue: the plain version's challenger tables are the
     XLA branch's, lane for lane (got and hw everywhere, the key/id lanes
     where got)."""
-    x = _phase_lanes(21, 300, True)
+    x, _ = _phase_lanes(21, 300, True)
     j = {k: jnp.asarray(v) for k, v in x.items()}
     want = ref_topk.topk_challengers_presorted(
         j["s_slot"].astype(jnp.int32), j["s_hi"], j["s_lo"], j["s_ia"], j["s_ib"], j["rw"],
@@ -176,7 +186,7 @@ def test_plain_raw_challengers_match_xla_branch():
 def test_wrapper_counts_no_launch_on_cpu():
     """CPU tensors take the plain version: no kernel, no launch count."""
     sketch_fused.reset_launch_counts()
-    x = _phase_lanes(31, 64, False)
+    _, x = _phase_lanes(31, 64, False)
     hll, cms, lanes = _state(31, False)
     _port(hll, cms, lanes, x)
     assert sketch_fused.LAUNCHES == {"sketch_fused": 0}
