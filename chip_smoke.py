@@ -13,7 +13,8 @@ loudly with a nonzero exit:
 2. Kernel parity at the full-width main-path shapes: every segmented-
    reduce launcher against its plain PyTorch version on the same
    inputs, at the pre-reduce shape (N = 2^21 rows, cap = 2^15) and the
-   fold shape (N = 2^16 + 2·4·2^15, cap = 2^16), with rows from
+   fold shape (N = 2^16 + 2·4·2^15, cap = 2^16, in the full fold's
+   sorted order and in the merge fold's merged order), with rows from
    SyntheticFlowGen(10_000, seed=0) through the port's own pre-reduce,
    fanout and stash. Live segments only; SUM lanes within rtol 1e-5
    (summation order), MAX lanes exact. Times: the call (CUDA events
@@ -46,15 +47,33 @@ loudly with a nonzero exit:
    sketch_rows counter, nothing shed or dropped, ≤ 3 fetches per ingest,
    and each window's distinct() within 2% of the exact count of client
    addresses in that second.
+3d. The merge fold (fold_mode="merge"), counts zeroed before and read
+   after: the bench.py cycle, whose final stash must equal phase 3's
+   full-fold stash lane for lane; the segreduce kernels also run at the
+   merge-fold shape in phase 2 (the ring sorted alone and rank-merged
+   into the stash, rows read through the merged order).
+3e. The pool + merge main path, counts zeroed before and read after:
+   the bench.py cycle and L4Pipeline over the same 6 seconds with
+   pooled sketch memory (`pool_sketch_config`) and the merge fold. The
+   windows must equal phase 3's, no sketch_fused launch (pool mode
+   takes plain scatters, as in the reference), segreduce launches > 0,
+   ≥ 1 promotion, ≤ 3 fetches per ingest; each block that lost no row
+   to a spill has the slab run's HLL registers and a distinct() within
+   2%, and spilled rows account for the rest. Both planes' resident
+   bytes are printed (sums of tensor sizes).
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
    equal, except that histogram counts may move to an adjacent bin
-   (CUDA logf vs the CPU's) — group totals must still agree.
+   (CUDA logf vs the CPU's) — group totals must still agree; then with
+   pooled memory and the merge fold (4c), counter lanes 18–20 included
+   and histograms compared at the compact bin width.
 5. One JSON line of each cycle's records/s (with its device idle share
-   and kernel launches), then one of the kernels (with the card's name
-   and power limit; each row with ms, device_ms, plain_ms, bound_ms,
-   bound_by and library_ms), then the last line
+   and kernel launches, and the launches of one fold alone in each fold
+   mode), then one of the kernels (with the card's name and power limit;
+   each row with ms, device_ms, plain_ms, bound_ms, bound_by and
+   library_ms, the segreduce rows also at the fold and merge-fold
+   shapes), then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -109,6 +128,28 @@ def sketch_config():
                         topk_cols=1024, pending=8)
 
 
+def pool_sketch_config():
+    """The same widths with pooled sketch memory: the pool variant of
+    bench/sketchbench.py:132 (3 compact slots, 1 wide, count-min and
+    histogram factor 8, top-K factor 2, promotion at fill 0.5)."""
+    from deepflow_tpu_torch.aggregator.sketchplane import PoolConfig
+
+    return dataclasses.replace(sketch_config(), pool=PoolConfig(topk_factor=2))
+
+
+def plane_bytes(cfg, dev) -> dict:
+    """Resident bytes of a fresh plane of `cfg`, as a sum of its tensors'
+    sizes: the pending buffer (its scratch row included) apart from the
+    rest."""
+    from deepflow_tpu_torch.aggregator.sketchplane import sketch_init
+
+    sk = sketch_init(cfg, RING, device=dev)
+    sizes = {f.name: getattr(sk, f.name).nbytes for f in dataclasses.fields(sk)}
+    pending = sizes.pop("pend") + sizes.pop("pend_win")
+    return {"planes": sum(sizes.values()), "pending": pending,
+            "total": sum(sizes.values()) + pending}
+
+
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
@@ -144,13 +185,18 @@ def device_time(fn, match) -> tuple[float, float]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and (match is None or match in e.key)]
+    # one more session if the first saw no device time: once, the first
+    # session of a process on the card recorded no kernel at all
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and (match is None or match in e.key)]
+        if events and sum(_dev_us(e) for e in events) > 0:
+            break
     check(events and sum(_dev_us(e) for e in events) > 0,
           f"the profiler saw no device time for {match}")
     return (sum(_dev_us(e) for e in events) / 1e3 / REPS,
@@ -188,17 +234,21 @@ def kernel_operands(dev):
     from deepflow_tpu_torch.aggregator.pipeline import (
         make_ingest_step, prereduce_keys, upload_flow_batch,
     )
-    from deepflow_tpu_torch.aggregator.stash import accum_init, fold_operands, stash_init
+    from deepflow_tpu_torch.aggregator.stash import (
+        accum_init, fold_operands, merge_fold_keys, merge_operands, stash_init,
+    )
     from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
     from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
     from deepflow_tpu_torch.ops.segment import SENTINEL_SLOT, segment_ids, sort_keys
 
-    def operands(slot, hi, lo, rows, valid, cap):
-        s_slot, s_hi, s_lo, perm = sort_keys(slot, hi, lo, valid)
+    def sorted_operands(s_slot, s_hi, s_lo, perm, rows, cap):
         seg, first_pos, num_seg = segment_ids(s_slot, s_hi, s_lo, cap)
         return dict(rows=rows, seg=seg, first_pos=first_pos, perm=perm.to(torch.int32),
                     cap=cap, live=min(int(num_seg), cap),
                     live_rows=int((seg < cap).sum()))
+
+    def operands(slot, hi, lo, rows, valid, cap):
+        return sorted_operands(*sort_keys(slot, hi, lo, valid), rows, cap)
 
     gen = SyntheticFlowGen(num_tuples=10_000, seed=0)
     tags, meters, valid = upload_flow_batch(gen.flow_batch(BATCH, T0), dev)
@@ -221,7 +271,14 @@ def kernel_operands(dev):
     )
     fold_ops = operands(f_slot, f_hi, f_lo, f_rows, f_valid, CAPACITY)
     check(f_rows.shape[0] == CAPACITY + ACCUM_BATCHES * stride, "fold shape")
-    return {"prereduce": pre, "fold": fold_ops}
+    # the merge fold of the same stash and ring: the ring sorted alone and
+    # rank-merged into the stash; the kernel reads rows through that order
+    _, na, a_perm = merge_fold_keys(acc, SENTINEL_SLOT)
+    m_sl, m_hi, m_lo, order, _, m_rows = merge_operands(state, *na, a_perm, acc.tags,
+                                                        acc.meters)
+    merge_ops = sorted_operands(m_sl, m_hi, m_lo, order, m_rows, CAPACITY)
+    check(merge_ops["live"] == fold_ops["live"], "merge and full fold segment counts differ")
+    return {"prereduce": pre, "fold": fold_ops, "merge_fold": merge_ops}
 
 
 def kernel_parity(name: str, ops: dict) -> dict:
@@ -455,12 +512,14 @@ def profile_cycle(cycle):
     }
 
 
-def bench_cycle(dev, cycles: int, with_profile: bool = False, sketch=None):
+def bench_cycle(dev, cycles: int, with_profile: bool = False, sketch=None,
+                fold_mode: str = "full"):
     """The bench.py cycle on the card (with `sketch`, the sketch plane
-    folds every append's pre-reduced rows, gated at T0 − delay): returns
-    (records/s over `cycles` timed cycles after one warmup, launches per
-    module in the warmup cycle, and — with `with_profile` — one more
-    cycle's profile_cycle summary)."""
+    folds every append's pre-reduced rows, gated at T0 − delay; the fold
+    of `fold_mode`): returns (records/s over `cycles` timed cycles after
+    one warmup, launches per module in the warmup cycle, — with
+    `with_profile` — one more cycle's profile_cycle summary with one more
+    fold's alone under "fold", and the final stash)."""
     from deepflow_tpu_torch.aggregator.fanout import FANOUT_LANES, FanoutConfig
     from deepflow_tpu_torch.aggregator.pipeline import make_ingest_step, upload_flow_batch
     from deepflow_tpu_torch.aggregator.sketchplane import sketch_init
@@ -471,14 +530,14 @@ def bench_cycle(dev, cycles: int, with_profile: bool = False, sketch=None):
     tags, meters, valid = upload_flow_batch(
         SyntheticFlowGen(num_tuples=10_000, seed=0).flow_batch(BATCH, T0), dev)
     append, fold = make_ingest_step(FanoutConfig(), interval=1,
-                                    batch_unique_cap=UNIQUE_CAP, sketch_config=sketch,
-                                    delay=DELAY, device=dev)
+                                    batch_unique_cap=UNIQUE_CAP, fold_mode=fold_mode,
+                                    sketch_config=sketch, delay=DELAY, device=dev)
     stride = FANOUT_LANES * UNIQUE_CAP
     st = {"state": stash_init(CAPACITY, TAG_SCHEMA, FLOW_METER, device=dev),
           "acc": accum_init(ACCUM_BATCHES * stride, TAG_SCHEMA, FLOW_METER, device=dev),
           "sk": None if sketch is None else sketch_init(sketch, RING, device=dev)}
 
-    def cycle():
+    def appends():
         for k in range(ACCUM_BATCHES):
             if sketch is None:
                 st["state"], st["acc"] = append(st["state"], st["acc"], k * stride,
@@ -487,7 +546,13 @@ def bench_cycle(dev, cycles: int, with_profile: bool = False, sketch=None):
                 st["state"], st["acc"], st["sk"] = append(
                     st["state"], st["acc"], k * stride, st["sk"], tags, meters, valid,
                     T0 - DELAY)
+
+    def fold_once():
         st["state"], st["acc"] = fold(st["state"], st["acc"])
+
+    def cycle():
+        appends()
+        fold_once()
 
     before = all_launches()
     cycle()
@@ -500,7 +565,12 @@ def bench_cycle(dev, cycles: int, with_profile: bool = False, sketch=None):
         cycle()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    summary = profile_cycle(cycle) if with_profile else None
+    summary = None
+    if with_profile:
+        summary = profile_cycle(cycle)
+        appends()
+        summary["fold"] = profile_cycle(fold_once)
+        del summary["fold"]["top"][4:]
     state = st["state"]
     live = int(state.valid.sum())
     check(live > 0, "bench cycle left an empty stash")
@@ -510,14 +580,19 @@ def bench_cycle(dev, cycles: int, with_profile: bool = False, sketch=None):
         sk = st["sk"]
         check(int(sk.rows) > 0 and int(sk.shed) == 0, "bench cycle sketch lanes")
         check(int(sk.count.sum()) == int(sk.rows), "sketch rows not all in the open slot")
-    return BATCH * ACCUM_BATCHES * cycles / dt, per_cycle, summary
+        if sketch.pool is not None:
+            check(int(sk.pool_promos) == 1 and int(sk.pool_spill) == 0,
+                  "the bench cycle's one window did not promote once without spill")
+    return BATCH * ACCUM_BATCHES * cycles / dt, per_cycle, summary, state
 
 
-def pipeline_stream(device, batch: int, seconds: list[int], sketch=None) -> dict:
+def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
+                    fold_mode: str = "full") -> dict:
     """L4Pipeline over one SyntheticFlowGen stream (sketch plane on with
-    `sketch`): the windows closed before the drain, all DocBatches, the
-    counters, every counter block, the closed sketch blocks, the host
-    fetches of each ingest, and each second's client words."""
+    `sketch`, the fold of `fold_mode`): the windows closed before the
+    drain, all DocBatches, the counters, every counter block, the closed
+    sketch blocks, the host fetches of each ingest, and each second's
+    client words."""
     from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
     from deepflow_tpu_torch.aggregator.window import WindowConfig
     from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
@@ -526,7 +601,7 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None) -> dict
     # advance holds four windows (the closing one included): 2^18 rows
     pipe = L4Pipeline(PipelineConfig(
         window=WindowConfig(capacity=STASH_CAPACITY, accum_batches=ACCUM_BATCHES,
-                            delay=DELAY, sketch=sketch),
+                            delay=DELAY, sketch=sketch, fold_mode=fold_mode),
         batch_size=batch, batch_unique_cap=min(UNIQUE_CAP, batch),
     ), device=device)
     blocks = []
@@ -605,9 +680,13 @@ def check_card_vs_cpu(card: dict, host: dict) -> None:
     check(card["blocks"] == host["blocks"], "counter blocks differ card vs CPU")
 
 
-def check_sketch_blocks_card_vs_cpu(card: list, host: list) -> int:
+def check_sketch_blocks_card_vs_cpu(card: list, host: list, coarsen: int = 1) -> int:
     """Phase 4b: every block lane equal, except histogram counts that a
-    different logf moved to an adjacent bin; returns how many moved."""
+    different logf moved to an adjacent bin; returns how many moved. With
+    pooled memory (4c) the histograms compare at the compact resolution
+    (`coarsen` wide bins a bin): a compact slot's count sits at the centre
+    of its compact bin, so a move by one wide bin there is a move by one
+    compact bin."""
     check(len(card) == len(host) > 0, "card and CPU closed different sketch blocks")
     moved = 0
     for a, b in zip(card, host):
@@ -615,7 +694,8 @@ def check_sketch_blocks_card_vs_cpu(card: list, host: list) -> int:
         for lane in ("hll", "cms", "tk_votes", "tk_hi", "tk_lo", "tk_ida", "tk_idb"):
             check(np.array_equal(getattr(a, lane), getattr(b, lane)),
                   f"sketch lane {lane} differs card vs CPU (window {a.window})")
-        d = a.hist - b.hist
+        g = a.hist.shape[0]
+        d = (a.hist - b.hist).reshape(g, -1, coarsen).sum(axis=2)
         check(np.array_equal(d.sum(axis=1), np.zeros(d.shape[0])),
               "histogram group totals differ card vs CPU")
         # a count moved by one bin crosses one bin edge: the prefix sums
@@ -734,7 +814,8 @@ def main() -> int:
     # 3. main path, fused gather (the default)
     os.environ["DEEPFLOW_FUSED_GATHER"] = "1"
     reset_all_launch_counts()
-    rate_gather, per_cycle_gather, prof = bench_cycle(dev, CYCLES, with_profile=True)
+    rate_gather, per_cycle_gather, prof, full_state = bench_cycle(dev, CYCLES,
+                                                                  with_profile=True)
     run = pipeline_stream(dev, BATCH, list(range(6)))
     main_gather = all_launches()
     check_pipeline_run(run)
@@ -750,7 +831,7 @@ def main() -> int:
     # 3b. main path through the pre-gathered launcher
     os.environ["DEEPFLOW_FUSED_GATHER"] = "0"
     reset_all_launch_counts()
-    rate_sorted, per_cycle_sorted, _ = bench_cycle(dev, CYCLES // 2)
+    rate_sorted, per_cycle_sorted, _, _ = bench_cycle(dev, CYCLES // 2)
     main_sorted = all_launches()
     os.environ["DEEPFLOW_FUSED_GATHER"] = "1"
     check(main_sorted["segreduce_sorted"] > 0 and main_sorted["segreduce_gather"] == 0,
@@ -758,8 +839,9 @@ def main() -> int:
 
     # 3c. the sketch-on main path: the bench.py cycle, then L4Pipeline
     reset_all_launch_counts()
-    rate_sketch, per_cycle_sketch, prof_sketch = bench_cycle(dev, CYCLES, with_profile=True,
-                                                             sketch=sk_cfg)
+    rate_sketch, per_cycle_sketch, prof_sketch, _ = bench_cycle(dev, CYCLES,
+                                                                with_profile=True,
+                                                                sketch=sk_cfg)
     sk_run = pipeline_stream(dev, BATCH, list(range(6)), sketch=sk_cfg)
     main_sketch = all_launches()
     check(per_cycle_sketch == {"segreduce": 3, "sketch_fused": 4},
@@ -792,6 +874,66 @@ def main() -> int:
                       "p50_rtt_first_window": blocks[0].quantile(0.5),
                       "counters": counters}), flush=True)
 
+    # 3d. the merge fold: the bench.py cycle through fold_mode="merge",
+    # whose stash must equal the full-fold cycle's row for row
+    reset_all_launch_counts()
+    rate_merge, per_cycle_merge, prof_merge, merge_state = bench_cycle(
+        dev, CYCLES, with_profile=True, fold_mode="merge")
+    main_merge = all_launches()
+    check(main_merge["segreduce_gather"] > 0 and main_merge["sketch_fused"] == 0,
+          f"merge cycle launches {main_merge}")
+    for f in dataclasses.fields(merge_state):
+        check(torch.equal(getattr(merge_state, f.name), getattr(full_state, f.name)),
+              f"merge-fold stash lane {f.name} differs from the full fold's")
+    print(json.dumps({"phase": "merge_cycle", "launches": main_merge,
+                      "launches_per_cycle": per_cycle_merge, "cycle": prof_merge,
+                      "full_fold": prof["fold"], "stash_equal_to_full_fold": True}),
+          flush=True)
+
+    # 3e. the pool + merge main path: the bench.py cycle and L4Pipeline
+    # with pooled sketch memory and the merge fold
+    pool_cfg = pool_sketch_config()
+    reset_all_launch_counts()
+    rate_pool, per_cycle_pool, prof_pool, _ = bench_cycle(
+        dev, CYCLES, with_profile=True, sketch=pool_cfg, fold_mode="merge")
+    pool_run = pipeline_stream(dev, BATCH, list(range(6)), sketch=pool_cfg,
+                               fold_mode="merge")
+    main_pool = all_launches()
+    check(main_pool["sketch_fused"] == 0 and main_pool["segreduce_gather"] > 0,
+          f"pool + merge main path launches {main_pool}")
+    check_pipeline_run(pool_run)
+    check(len(pool_run["docs"]) == len(run["docs"]), "pool + merge run closed other windows")
+    for a, b in zip(pool_run["docs"], run["docs"]):
+        check(np.array_equal(a.timestamp, b.timestamp) and np.array_equal(a.tags, b.tags)
+              and np.array_equal(a.meters.view(np.uint32), b.meters.view(np.uint32)),
+              "pool + merge windows differ from the full-fold run's")
+    p_counters = pool_run["counters"]
+    check(p_counters["sketch_promotions"] >= 1, "no window promoted to the wide arena")
+    check(max(pool_run["fetches"]) <= 3, f"host fetches per ingest {pool_run['fetches']}")
+    slab_blocks = {b.window: b for b in blocks}
+    spilled, pool_err = 0, []
+    for b in pool_run["sketches"]:
+        a = slab_blocks[b.window]
+        if b.n_updates < a.n_updates:  # rows the pool could not seat
+            spilled += a.n_updates - b.n_updates
+            continue
+        check(np.array_equal(a.hll, b.hll), f"pooled HLL differs from the slab's ({b.window})")
+        exact = pool_run["clients"][b.window]
+        pool_err.append((b.distinct() - exact) / exact)
+        check(abs(pool_err[-1]) <= DISTINCT_RTOL,
+              f"pooled distinct() {b.distinct():.1f} vs exact {exact} ({b.window})")
+    check(pool_err and spilled == p_counters["sketch_pool_spill"]
+          and sum(b.n_updates for b in pool_run["sketches"]) + spilled
+          == p_counters["sketch_rows"], "pooled blocks do not account for every row")
+    resident = {"slab": plane_bytes(sk_cfg, dev), "pool": plane_bytes(pool_cfg, dev)}
+    print(json.dumps({"phase": "profile_pool_merge", "cycle": prof_pool}), flush=True)
+    print(json.dumps({"phase": "main_path_pool_merge", "launches": main_pool,
+                      "launches_per_cycle": per_cycle_pool,
+                      "fetches_per_ingest": pool_run["fetches"],
+                      "distinct_rel_err": pool_err, "spilled_rows": spilled,
+                      "blocks": len(pool_run["sketches"]), "resident_bytes": resident,
+                      "counters": p_counters}), flush=True)
+
     # 4. card vs CPU on the same stream, exact; 4b with the sketch plane
     seconds = [0, 0, 1, 2, 1, 3, 4, 6, 3, 5, 8]  # the second 3 is late
     card = pipeline_stream(dev, SMALL_BATCH, seconds)
@@ -806,29 +948,45 @@ def main() -> int:
     print(json.dumps({"phase": "card_vs_cpu_sketch", "windows": len(card["docs"]),
                       "blocks": len(card["sketches"]), "hist_counts_moved": moved}),
           flush=True)
+    # 4c. pooled sketch memory and the merge fold, card vs CPU
+    card = pipeline_stream(dev, SMALL_BATCH, seconds, sketch=pool_cfg, fold_mode="merge")
+    host = pipeline_stream("cpu", SMALL_BATCH, seconds, sketch=pool_cfg, fold_mode="merge")
+    check_card_vs_cpu(card, host)
+    moved = check_sketch_blocks_card_vs_cpu(card["sketches"], host["sketches"],
+                                            coarsen=pool_cfg.pool.hist_factor)
+    check(card["counters"]["sketch_promotions"] >= 1, "4c: no promotion at 2^14 rows")
+    print(json.dumps({"phase": "card_vs_cpu_pool_merge", "windows": len(card["docs"]),
+                      "blocks": len(card["sketches"]), "hist_counts_moved": moved,
+                      "promotions": card["counters"]["sketch_promotions"],
+                      "pool_spill": card["counters"]["sketch_pool_spill"]}), flush=True)
 
     # 5. result lines
     kernels = []
     launches = {"segreduce_gather": (main_gather, per_cycle_gather),
                 "segreduce_sorted": (main_sorted, per_cycle_sorted)}
     for k, replaces in KERNELS.items():
-        pre, fold = results[k]["prereduce"], results[k]["fold"]
+        pre, fold, merge = (results[k][shape] for shape in ("prereduce", "fold", "merge_fold"))
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[k][0][k],
             "launches_per_cycle": launches[k][1]["segreduce"],
-            "parity": {"ok": pre["parity_ok"] and fold["parity_ok"], "sum_rtol": SUM_RTOL,
-                       "max": "exact", "against": "sorted_segment_sum_max_plain"},
-            "max_abs_err": max(pre["max_abs_err"], fold["max_abs_err"]),
+            "parity": {"ok": pre["parity_ok"] and fold["parity_ok"] and merge["parity_ok"],
+                       "sum_rtol": SUM_RTOL, "max": "exact",
+                       "against": "sorted_segment_sum_max_plain"},
+            "max_abs_err": max(pre["max_abs_err"], fold["max_abs_err"], merge["max_abs_err"]),
             **{f: pre[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library")},
-            "shape": "prereduce", "fold": fold,
+            "shape": "prereduce", "fold": fold, "merge_fold": merge,
+            # the merge-fold cycle and the pool + merge main path, each
+            # with its counts zeroed before it and read after it
+            "launches_merge_cycles": main_merge[k], "launches_pool_merge": main_pool[k],
         })
     sk_name, sk_replaces, sk_source = SKETCH_KERNEL
     kernels.append({
         "name": sk_name, "route": "cuda", "source": sk_source, "replaces": sk_replaces,
         "launches": main_sketch[sk_name],
         "launches_per_cycle": per_cycle_sketch[sk_name],
+        "launches_pool_merge": main_pool[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
@@ -848,6 +1006,16 @@ def main() -> int:
                       "batch": BATCH, "device_idle_share": prof_sketch["idle_share"],
                       "launches_per_cycle": prof_sketch["kernel_launches"],
                       "sketch": dataclasses.asdict(sk_cfg)}))
+    print(json.dumps({"metric": "port_bench_cycle_merge_records_per_sec",
+                      "value": rate_merge, "value_pool_merge": rate_pool,
+                      "unit": "records/s", "gpu": gpu, "batch": BATCH,
+                      "device_idle_share": prof_merge["idle_share"],
+                      "device_idle_share_pool_merge": prof_pool["idle_share"],
+                      "launches_per_cycle": prof_merge["kernel_launches"],
+                      "launches_per_cycle_pool_merge": prof_pool["kernel_launches"],
+                      "launches_per_fold": {"merge": prof_merge["fold"]["kernel_launches"],
+                                            "full": prof["fold"]["kernel_launches"]},
+                      "sketch": dataclasses.asdict(pool_cfg)}))
     print(json.dumps({"gpu": gpu, "kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

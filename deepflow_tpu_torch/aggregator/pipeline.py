@@ -1,18 +1,21 @@
 """Flow-metrics rollup pipelines, L4 network + L7 application (port of
-deepflow_tpu/aggregator/pipeline.py, cascade-free, full fold).
+deepflow_tpu/aggregator/pipeline.py, cascade-free).
 
 Per batch: optional batch-local pre-reduce → [sketch plane] → fanout →
 packed-word doc fingerprint → late gate + counter block → accumulator
 ring append, as one eager PyTorch step on the pipeline's device;
 `WindowManager` drives the window protocol around it. The segmented
-reduces inside the pre-reduce and the fold run the CUDA kernel of
-kernels/segreduce.cu on the card, the sketch plane's fused HLL /
-count-min / top-K update the kernel of kernels/sketch_fused.cu.
+reduces inside the pre-reduce and the fold (full or merge) run the CUDA
+kernel of kernels/segreduce.cu on the card, the slab sketch plane's
+fused HLL / count-min / top-K update the kernel of
+kernels/sketch_fused.cu (pool mode takes plain scatters).
 
-The sketch plane (`WindowConfig(sketch=SketchConfig(...))`, slab mode)
-folds the pre-reduced flow rows BEFORE the fanout, so a flow counts
-once; closed blocks collect in `closed_sketches` for
-`pop_closed_sketches()`.
+The sketch plane (`WindowConfig(sketch=SketchConfig(...))`, slab or
+pool mode) folds the pre-reduced flow rows BEFORE the fanout, so a flow
+counts once; closed blocks collect in `closed_sketches` for
+`pop_closed_sketches()`. Unlike the reference's RollupPipeline, whose
+counter block leaves the pool lanes 18–20 at 0, the port fills them
+from the plane, as both packages' WindowManager.ingest does.
 
 Not ported yet: countable registration, profiling census, lineage, the
 cascade (DualGranularityPipeline), live snapshots.
@@ -33,13 +36,15 @@ from ..ops.hashing import fingerprint64_words
 from ..ops.segment import groupby_reduce
 from ..ops.u32 import from_numpy_u32
 from .fanout import FANOUT_LANES, FanoutConfig, fanout_l4, fanout_l7
-from .stash import _append_impl, _fold_impl, sum_max_cols
+from ..ops.segment import SENTINEL_SLOT
+from .stash import _append_impl, _fold_impl, _merge_fold_impl, check_fold_mode, sum_max_cols
 from .sketchplane import SketchConfig, SketchState, hold_blocks, sketch_plane_step
 from .window import (
     FlushedWindow,
     WindowConfig,
     WindowManager,
     batch_counter_block,
+    sketch_counter_lanes,
     sketch_inputs_from_columns,
     sketch_span_bounds,
 )
@@ -114,7 +119,7 @@ def sketch_flow_rows(sk: SketchState, spec, tags: dict, meters, valid, start_win
 
 
 def make_ingest_step(fanout_config: FanoutConfig, interval: int = 1, app: bool = False,
-                     batch_unique_cap: int | None = None, *,
+                     batch_unique_cap: int | None = None, fold_mode: str = "full", *,
                      sketch_config: SketchConfig | None = None, delay: int = 2,
                      device=None):
     """Build the device step pair: FlowBatch lanes → stash.
@@ -135,11 +140,13 @@ def make_ingest_step(fanout_config: FanoutConfig, interval: int = 1, app: bool =
 
     `append` runs per batch: optional pre-reduce → fanout → fingerprint
     → one ring write at `offset` (a host int the caller advances).
-    `fold` is the amortized sort+reduce over [S + A] rows. `tags` is a
+    `fold` is the amortized fold of the ring into the stash: with
+    `fold_mode` "full" one sort+reduce over [S + A] rows, with "merge"
+    the rank merge of the sorted ring into the stash. `tags` is a
     dict of [N] u32 lanes (or a FlowBatch's numpy columns, uploaded to
     `device`); stash/acc come from stash_init/accum_init on `device`.
-    The ring and the sketch plane are written in place. The reference's
-    merge fold is not ported."""
+    The ring and the sketch plane are written in place."""
+    check_fold_mode(fold_mode)
     dev = resolve_device(device)
     fanout_fn = fanout_l7 if app else fanout_l4
     meter_schema = APP_METER if app else FLOW_METER
@@ -178,6 +185,8 @@ def make_ingest_step(fanout_config: FanoutConfig, interval: int = 1, app: bool =
             return _base_append(stash, acc, offset, tags, meters, valid, sk, start_window)
 
     def fold(stash, acc):
+        if fold_mode == "merge":
+            return _merge_fold_impl(stash, acc, SENTINEL_SLOT, sum_cols, max_cols)[:2]
         return _fold_impl(stash, acc, sum_cols, max_cols)
 
     return append, fold
@@ -263,8 +272,7 @@ class RollupPipeline:
             excess_hits=((excess != 0) & doc_valid).sum(),
             stash_valid=stash_valid, stash_evictions=stash_evict,
             ring_fill=offset, feeder_shed=feeder_shed, fold_rows=fold_rows,
-            sketch_rows=None if sk is None else sk.rows,
-            sketch_shed=None if sk is None else sk.shed,
+            **sketch_counter_lanes(sk),
         )
         acc = _append_impl(acc, window, hi, lo, doc_tags, doc_meters, gated, offset)
         return (acc, block) if sk is None else (acc, block, sk)

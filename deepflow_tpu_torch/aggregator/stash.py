@@ -1,5 +1,4 @@
-"""Device-resident document stash — full-fold half (port of
-deepflow_tpu/aggregator/stash.py).
+"""Device-resident document stash (port of deepflow_tpu/aggregator/stash.py).
 
 A fixed-capacity table of (window slot, 64-bit key, tag row, meter row),
 kept sorted by (slot, key) by construction: every fold re-sorts the
@@ -9,11 +8,19 @@ Segments beyond capacity are dropped and counted (`dropped_overflow`);
 since the sort is (slot, key)-ordered, drops land on the newest
 window's keys and closing windows are never evicted.
 
+Two folds share this file, as in the reference: the full fold
+(`_fold_impl`, one sort of the [S + A] concatenation) and the
+incremental merge fold (`_merge_fold_impl`: sort only the ring, rank-
+merge it against the standing stash order, optionally bounded to the
+windows about to close). The merge fold needs the CANONICAL layout —
+live rows a (slot, key)-sorted positional prefix — which every fold
+leaves, the compacting range flush (`compact=True`) keeps and
+`stash_canonicalize` restores. Both folds are bit-equal.
+
 The JAX package's functions are pure and donate their inputs; here the
 accumulator ring is updated IN PLACE (`_append_impl` writes its slice,
-`_fold_impl` resets the slot lane), which saves a ring-sized copy per
-batch. The incremental merge-fold, the live snapshot and the compacting
-range flush are not ported yet.
+the folds reset the slot lanes they consume), which saves a ring-sized
+copy per batch. The live snapshot is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,8 +31,15 @@ import numpy as np
 import torch
 
 from ..datamodel.schema import MeterSchema, TagSchema
-from ..ops.segment import SENTINEL_SLOT, groupby_reduce
-from ..ops.u32 import to_i32_bits
+from ..ops.segment import (
+    SENTINEL_SLOT,
+    groupby_reduce,
+    groupby_reduce_sorted,
+    merge_order,
+    merge_ranks,
+    sort_perm,
+)
+from ..ops.u32 import U32_MAX, to_i32_bits
 
 
 @dataclasses.dataclass
@@ -107,19 +121,23 @@ def fold_operands(state: StashState, slot, key_hi, key_lo, tags_t, meters_t, val
     )
 
 
+def _from_grouped(state: StashState, g) -> StashState:
+    """The stash a fold's group-by leaves: its segments, with the ones
+    past capacity counted into `dropped_overflow`."""
+    return StashState(
+        slot=g.slot, key_hi=g.key_hi, key_lo=g.key_lo, tags=g.tags, meters=g.meters,
+        valid=g.seg_valid,
+        dropped_overflow=state.dropped_overflow
+        + torch.clamp(g.num_segments - state.capacity, min=0),
+    )
+
+
 def _merge_impl(state: StashState, slot, key_hi, key_lo, tags_t, meters_t, valid,
                 sum_cols, max_cols) -> StashState:
-    s = state.capacity
-    g = groupby_reduce(
+    return _from_grouped(state, groupby_reduce(
         *fold_operands(state, slot, key_hi, key_lo, tags_t, meters_t, valid),
-        sum_cols, max_cols, out_capacity=s,
-    )
-    dropped = torch.clamp(g.num_segments - s, min=0)
-    return StashState(
-        slot=g.slot, key_hi=g.key_hi, key_lo=g.key_lo, tags=g.tags,
-        meters=g.meters, valid=g.seg_valid,
-        dropped_overflow=state.dropped_overflow + dropped,
-    )
+        sum_cols, max_cols, out_capacity=state.capacity,
+    ))
 
 
 def _append_impl(acc: AccumState, slot, key_hi, key_lo, tags_t, meters_t, valid,
@@ -168,6 +186,93 @@ def stash_fold_counted(state: StashState, acc: AccumState, meter_schema: MeterSc
     return _fold_counted_impl(state, acc, *sum_max_cols(meter_schema))
 
 
+def check_fold_mode(mode: str) -> None:
+    """The fold_mode membership check every entry point shares."""
+    if mode not in ("full", "merge"):
+        raise ValueError(f"fold_mode must be 'full' or 'merge', got {mode!r}")
+
+
+def _normalized_keys(slot, key_hi, key_lo, keep):
+    """Key lanes with every row outside `keep` re-keyed to (SENTINEL,
+    U32_MAX, U32_MAX): it sorts after every live row."""
+    return (torch.where(keep, slot, SENTINEL_SLOT), torch.where(keep, key_hi, U32_MAX),
+            torch.where(keep, key_lo, U32_MAX))
+
+
+def stash_canonicalize(state: StashState) -> StashState:
+    """Re-establish the canonical layout (live rows a (slot, key)-
+    ascending positional prefix, dead rows sentinel-keyed behind) with
+    one keyed sort; every live row's content is kept bit for bit. For a
+    stash that left it, such as one restored from an old checkpoint."""
+    sl, hi, lo = _normalized_keys(state.slot, state.key_hi, state.key_lo, state.valid)
+    order = sort_perm(sl, hi, lo)
+    return StashState(
+        slot=sl[order], key_hi=state.key_hi[order], key_lo=state.key_lo[order],
+        tags=state.tags[:, order], meters=state.meters[:, order],
+        valid=state.valid[order], dropped_overflow=state.dropped_overflow,
+    )
+
+
+def merge_operands(state: StashState, na_sl, na_hi, na_lo, a_perm, acc_tags, acc_meters):
+    """The `groupby_reduce_sorted` operands of a rank-merge fold: one run
+    merged against the canonical stash. `na_*` are the run's normalized
+    key lanes in ring order and `a_perm` their stable sort; the payload
+    lanes (`acc_tags` [T, A], `acc_meters` [M, A]) stay unsorted. Returns
+    the merged key lanes, the merged order (merged position → row of
+    stash ‖ run) and the [T, S+A] tags / row-contiguous [S+A, M] meters
+    it indexes — the reduce kernel reads the meter rows through it."""
+    s = state.capacity
+    ns = _normalized_keys(state.slot, state.key_hi, state.key_lo, state.valid)
+    rank_s, rank_a = merge_ranks(ns, (na_sl[a_perm], na_hi[a_perm], na_lo[a_perm]))
+    order = merge_order(rank_s, rank_a, torch.arange(s, device=a_perm.device), s + a_perm)
+    s_sl, s_hi, s_lo = (torch.cat([a, b])[order] for a, b in zip(ns, (na_sl, na_hi, na_lo)))
+    return (s_sl, s_hi, s_lo, order, torch.cat([state.tags, acc_tags], dim=1),
+            torch.cat([state.meters, acc_meters], dim=1).t().contiguous())
+
+
+def _sorted_merge_reduce(state: StashState, na_sl, na_hi, na_lo, a_perm, acc_tags,
+                         acc_meters, sum_cols, max_cols) -> StashState:
+    """Rank-merge one run against the canonical stash (`merge_operands`)
+    and segment-reduce the merged order into a fresh stash."""
+    return _from_grouped(state, groupby_reduce_sorted(
+        *merge_operands(state, na_sl, na_hi, na_lo, a_perm, acc_tags, acc_meters),
+        sum_cols, max_cols, out_capacity=state.capacity,
+    ))
+
+
+def merge_fold_keys(acc: AccumState, hi_window):
+    """(fold_mask, normalized ring key lanes, their stable sort) of a
+    merge fold: ring rows with slot < hi_window fold, the rest are re-
+    keyed to sort last."""
+    fold_mask = acc.slot < hi_window
+    na = _normalized_keys(acc.slot, acc.key_hi, acc.key_lo, fold_mask)
+    return fold_mask, na, sort_perm(*na)
+
+
+def _merge_fold_impl(state: StashState, acc: AccumState, hi_window, sum_cols, max_cols):
+    """Rank-merge fold: sort the ring only, merge it against the sorted
+    stash and reduce the merged run. Only ring rows with slot < hi_window
+    fold (SENTINEL_SLOT = every live row: the full-set fold); consumed
+    rows turn sentinel in place, the rest stay in the ring untouched.
+    Requires the canonical stash layout. Returns (state, acc, fold_rows)
+    with fold_rows the ring rows this fold sorted."""
+    fold_mask, na, a_perm = merge_fold_keys(acc, hi_window)
+    new_state = _sorted_merge_reduce(state, *na, a_perm, acc.tags, acc.meters, sum_cols,
+                                     max_cols)
+    acc.slot.masked_fill_(fold_mask, SENTINEL_SLOT)
+    return new_state, acc, fold_mask.sum()
+
+
+def stash_merge_fold(state: StashState, acc: AccumState, meter_schema: MeterSchema,
+                     hi_window: int | None = None):
+    """Schema-keyed merge fold → (state, acc, fold_rows). `hi_window`
+    None folds every live row (the ring empties: callers reset their fill
+    cursor); otherwise only rows with slot < hi_window (the span-bounded
+    window advance: callers keep their fill cursor)."""
+    hi = SENTINEL_SLOT if hi_window is None else int(hi_window)
+    return _merge_fold_impl(state, acc, hi, *sum_max_cols(meter_schema))
+
+
 def plan_append(fill: int, capacity: int | None, rows: int) -> str:
     """Host-side accumulator decision: 'init' — no ring yet or one too
     small for this batch (fold pending rows BEFORE replacing the ring);
@@ -205,17 +310,29 @@ def _pack_window_range(state: StashState, lo: int, hi: int):
     return mask, packed, mask.sum()
 
 
-def _flush_range_impl(state: StashState, lo_window: int, hi_window: int):
+def _flush_range_impl(state: StashState, lo_window: int, hi_window: int, *,
+                      compact: bool = False):
     """Close every window in [lo_window, hi_window): their rows come out
     front-compacted in ONE packed matrix (plus the row count) and their
-    slots are reclaimed. Rows are ordered by (window, stash position)."""
+    slots are reclaimed. Rows are ordered by (window, stash position).
+
+    `compact` keeps the canonical layout the merge fold needs: on a
+    canonical stash the flushed rows are the positional prefix [0, total)
+    (the closing windows hold the smallest live slots — the window
+    managers flush older windows first), so rolling every lane by
+    `total` moves the survivors to the front. The flushed output is the
+    same either way."""
     mask, packed, total = _pack_window_range(state, lo_window, hi_window)
-    new_state = dataclasses.replace(
-        state,
-        slot=torch.where(mask, SENTINEL_SLOT, state.slot),
-        valid=state.valid & ~mask,
-    )
-    return new_state, packed, total
+    slot = torch.where(mask, SENTINEL_SLOT, state.slot)
+    valid = state.valid & ~mask
+    if not compact:
+        return dataclasses.replace(state, slot=slot, valid=valid), packed, total
+    idx = (torch.arange(state.capacity, device=slot.device) + total) % state.capacity
+    return StashState(
+        slot=slot[idx], key_hi=state.key_hi[idx], key_lo=state.key_lo[idx],
+        tags=state.tags[:, idx], meters=state.meters[:, idx], valid=valid[idx],
+        dropped_overflow=state.dropped_overflow,
+    ), packed, total
 
 
 def unpack_flush_rows(rows: np.ndarray, num_tags: int):

@@ -1,5 +1,5 @@
 """Window ring controller — SubQuadGen/Collector window semantics (port of
-deepflow_tpu/aggregator/window.py, sync mode, full fold).
+deepflow_tpu/aggregator/window.py, sync mode).
 
   * time is bucketed into fixed `interval` windows;
   * a window stays open for `delay` seconds after its end to absorb
@@ -11,22 +11,25 @@ Control flow is host-driven; the data path stays on the device. Each
 batch is one append step that also computes the versioned COUNTER BLOCK
 (layout v7, 21 u32 lanes — identical to the reference's); the host
 fetches that block (one transfer), and a window advance costs two more
-(the scalar vector [row count, pending sketch blocks], then ONE packed
-transfer of flush rows ‖ closed sketch blocks ‖ their window ids),
+(the scalar vector [row count, pending sketch blocks, closed wide
+slots], then ONE packed transfer of flush rows ‖ closed sketch blocks ‖
+their window ids ‖ the wide arena's rows and ids when a wide slot closed),
 independent of batch size and of how many windows closed. Every
 device→host transfer goes through `host_fetch`, so a test can count
 them.
 
 With `WindowConfig(sketch=SketchConfig(...))` the same step also folds
 the batch into the per-window sketch plane (aggregator/sketchplane.py,
-slab mode): closed windows come out with `FlushedWindow.sketches`, and
-a window whose exact rows were all shed still comes out, sketch-only
-(count == 0).
+slab or pool mode): closed windows come out with
+`FlushedWindow.sketches`, and a window whose exact rows were all shed
+still comes out, sketch-only (count == 0). With fold_mode="merge" the
+folds rank-merge the sorted ring into the stash, and an advance folds
+only the closing span (aggregator/stash.py); the windows are the same.
 
 Not ported yet (WindowConfig raises NotImplementedError): the rollup
-cascade, fold_mode="merge", the K-batch counter ring (stats_ring > 1)
-and async_drain; retry/chaos seams, lineage, spans, profiling
-registration and live snapshots are absent.
+cascade, the K-batch counter ring (stats_ring > 1) and async_drain;
+retry/chaos seams, lineage, spans, profiling registration and live
+snapshots are absent.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from ..device import resolve_device
 from ..ops.hashing import fingerprint64_words
 from ..ops.u32 import MASK, U32_MAX, add, mul, shl, to_i32_bits
 from .sketchplane import (
+    SENTINEL_WIN,
     SketchConfig,
     SketchState,
     WindowSketchBlock,
@@ -56,8 +60,10 @@ from .stash import (
     _append_impl,
     _flush_range_impl,
     accum_init,
+    check_fold_mode,
     plan_append,
     stash_fold_counted,
+    stash_merge_fold,
     stash_init,
     unpack_flush_rows,
 )
@@ -92,9 +98,9 @@ COUNTER_BLOCK_VERSION = 7
     CB_CASCADE_SHED,
     CB_SNAPSHOT_READS,  # live read plane (not ported: 0)
     CB_SNAPSHOT_BYTES,
-    CB_SKETCH_POOL_SPILL,  # pooled sketch memory (not ported: 0 — slab mode)
-    CB_SKETCH_POOL_OCC,
-    CB_SKETCH_PROMOTIONS,
+    CB_SKETCH_POOL_SPILL,  # cumulative rows the full pool could not seat
+    CB_SKETCH_POOL_OCC,  # seated ring slots + closed wide slots at dispatch
+    CB_SKETCH_PROMOTIONS,  # cumulative compact → wide promotions (0 in slab mode)
 ) = range(21)
 CB_LEN = 21
 CB_FIELDS = (
@@ -128,10 +134,12 @@ def batch_stats(timestamp, valid, start_window: int, interval: int, aux=None):
 def batch_counter_block(timestamp, valid, start_window: int, interval: int, *,
                         aux=None, excess_hits=None, stash_valid=None,
                         stash_evictions=None, ring_fill=None, feeder_shed=None,
-                        fold_rows=None, sketch_rows=None, sketch_shed=None):
+                        fold_rows=None, sketch_rows=None, sketch_shed=None,
+                        sketch_pool_spill=None, sketch_pool_occ=None,
+                        sketch_promotions=None):
     """`batch_stats` widened into the v7 counter block (one int64 tensor
-    of CB_LEN u32 lanes). The cascade / snapshot / pool lanes belong to
-    planes this package has not ported and stay 0."""
+    of CB_LEN u32 lanes). The cascade / snapshot lanes belong to planes
+    this package has not ported and stay 0."""
     gated, window, stats = batch_stats(timestamp, valid, start_window, interval, aux=aux)
     dev = timestamp.device
 
@@ -146,21 +154,34 @@ def batch_counter_block(timestamp, valid, start_window: int, interval: int, *,
         torch.full((1,), COUNTER_BLOCK_VERSION, dtype=torch.int64, device=dev),
         stats,
         tail & MASK,
-        torch.zeros((CB_LEN - 14,), dtype=torch.int64, device=dev),
+        torch.zeros((CB_SKETCH_POOL_SPILL - CB_CASCADE_ROWS,), dtype=torch.int64, device=dev),
+        torch.stack([lane(sketch_pool_spill), lane(sketch_pool_occ),
+                     lane(sketch_promotions)]) & MASK,
     ])
     return gated, window, block
 
 
+def sketch_counter_lanes(sk: SketchState | None) -> dict:
+    """The counter-block lanes the sketch plane feeds (`batch_counter_block`
+    keywords): cumulative rows and shed, pool spill and promotions, and the
+    pool occupancy gauge — seated ring slots plus closed wide slots awaiting
+    their drain (0 in slab mode, whose pool fields are empty)."""
+    if sk is None:
+        return {}
+    occ = (sk.slot_of != -1).sum() + (sk.wide_close != SENTINEL_WIN).sum()
+    return dict(sketch_rows=sk.rows, sketch_shed=sk.shed, sketch_pool_spill=sk.pool_spill,
+                sketch_pool_occ=occ, sketch_promotions=sk.pool_promos)
+
+
 def _raw_append_step(acc, offset: int, start_window: int, stash_valid, stash_evict,
                      feeder_shed: int, fold_rows, timestamp, key_hi, key_lo,
-                     tags, meters, valid, *, interval: int, sketch_rows=None,
-                     sketch_shed=None):
-    """One raw doc batch: late gate + counter block + ring append."""
+                     tags, meters, valid, *, interval: int, sk: SketchState | None = None):
+    """One raw doc batch: late gate + counter block (with the lanes of
+    the sketch plane `sk`) + ring append."""
     gated, window, block = batch_counter_block(
         timestamp, valid, start_window, interval,
         stash_valid=stash_valid, stash_evictions=stash_evict, ring_fill=offset,
-        feeder_shed=feeder_shed, fold_rows=fold_rows, sketch_rows=sketch_rows,
-        sketch_shed=sketch_shed,
+        feeder_shed=feeder_shed, fold_rows=fold_rows, **sketch_counter_lanes(sk),
     )
     acc = _append_impl(acc, window, key_hi, key_lo, tags, meters, gated, offset)
     return acc, block
@@ -264,8 +285,7 @@ def _raw_append_step_sk(acc, offset: int, start_window: int, stash_valid, stash_
                            base_w=base_w, close_w=close_w, **inp)
     acc, block = _raw_append_step(
         acc, offset, start_window, stash_valid, stash_evict, feeder_shed, fold_rows,
-        timestamp, key_hi, key_lo, tags, meters, valid, interval=interval,
-        sketch_rows=sk.rows, sketch_shed=sk.shed,
+        timestamp, key_hi, key_lo, tags, meters, valid, interval=interval, sk=sk,
     )
     return acc, block, sk
 
@@ -280,15 +300,17 @@ class WindowConfig:
     accum_batches: int = 8
     # per-window sketch plane (aggregator/sketchplane.py, slab mode)
     sketch: SketchConfig | None = None
+    # "full" re-sorts stash + ring at every fold; "merge" sorts only the
+    # ring and rank-merges it into the stash, and a window advance folds
+    # only the closing span (stash.py). Bit-equal flushed windows.
+    fold_mode: str = "full"
     # reference options this package has not ported yet: set, they raise
     async_drain: bool = False
     stats_ring: int = 1
-    fold_mode: str = "full"
     cascade: object | None = None
 
     def __post_init__(self):
-        if self.fold_mode not in ("full", "merge"):
-            raise ValueError(f"fold_mode must be 'full' or 'merge', got {self.fold_mode!r}")
+        check_fold_mode(self.fold_mode)
         if self.sketch is not None and not isinstance(self.sketch, SketchConfig):
             raise TypeError(
                 f"WindowConfig.sketch takes a deepflow_tpu_torch SketchConfig, got "
@@ -296,7 +318,6 @@ class WindowConfig:
             )
         unported = {
             "cascade": self.cascade is not None,
-            "fold_mode='merge'": self.fold_mode == "merge",
             "stats_ring>1": self.stats_ring != 1,
             "async_drain": self.async_drain,
         }
@@ -323,9 +344,13 @@ class _FlushEntry:
     total: torch.Tensor  # 0-dim int64 (device)
     lo: int
     hi: int
-    pend: torch.Tensor | None = None  # [P + 1, WIDE] int32 bits
+    pend: torch.Tensor | None = None  # [P + 1, WIDE] int32 bits ([P + 1, CW] pooled)
     pend_win: torch.Tensor | None = None  # [P + 1] u32 lane
     pend_n: torch.Tensor | None = None  # 0-dim int64
+    # pool mode: the wide arena's rows ([Pw, WIDE] int32 bits) and window
+    # ids ([Pw] u32 lane, SENTINEL_WIN where the slot did not close)
+    wide_rows: torch.Tensor | None = None
+    wide_wins: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
@@ -376,6 +401,9 @@ class WindowManager:
         # the last fold's touched-row count, a device scalar riding into
         # the next dispatch's counter block (zero transfer)
         self._fold_rows_dev = torch.zeros((), dtype=torch.int64, device=self.device)
+        # merge mode flushes through the compacting range flush, which
+        # keeps the canonical layout the rank merge requires
+        self._flush_compact = config.fold_mode == "merge"
         self.n_advances = 0
         self.host_fetches = 0
         self.bytes_fetched = 0
@@ -388,6 +416,11 @@ class WindowManager:
         self._sketch_ix: tuple | None = None
         self.sketch_rows = 0
         self.sketch_shed = 0
+        # pooled sketch memory: cumulative spills and promotions, and the
+        # occupancy gauge (0 in slab mode)
+        self.sketch_pool_spill = 0
+        self.sketch_pool_occ = 0
+        self.sketch_promotions = 0
         self._sketch_blocks: dict[int, WindowSketchBlock] = {}
         if config.sketch is not None:
             self._sketch_ix = sketch_tag_indices(tag_schema, meter_schema)
@@ -404,35 +437,47 @@ class WindowManager:
     def _drain_flush(self, entry: _FlushEntry) -> list[FlushedWindow]:
         """Fetch ONE packed flush result and split it into windows: two
         transfers whatever rides along. With the sketch plane on, the
-        scalar fetch widens to [row count, pending blocks] and the row
-        fetch becomes one int32 concatenation (flush rows ‖ block rows ‖
-        block window ids); the blocks marry their windows, and a block
-        whose window has no exact rows in this drain's range becomes a
-        sketch-only window."""
+        scalar fetch widens to [row count, pending blocks] (pool mode:
+        and closed wide slots) and the row fetch becomes one int32
+        concatenation (flush rows ‖ block rows ‖ block window ids, then,
+        when a wide slot closed, every wide row ‖ its window id — the
+        host skips the open ones); the blocks marry their windows, and a
+        block whose window has no exact rows in this drain's range
+        becomes a sketch-only window."""
         if entry.pend is None:
-            total, n_blocks = int(self._fetch(entry.total)), 0
+            total, n_blocks, n_wide = int(self._fetch(entry.total)), 0, 0
         else:
-            total, n_blocks = (int(v) for v in
-                               self._fetch(torch.stack([entry.total, entry.pend_n])))
-        if total == n_blocks == 0:
+            scalars = [entry.total, entry.pend_n]
+            if entry.wide_rows is not None:
+                scalars.append((entry.wide_wins != SENTINEL_WIN).sum())
+            total, n_blocks, n_wide = ([int(v) for v in self._fetch(torch.stack(scalars))]
+                                       + [0])[:3]
+        groups = []  # (block rows, window ids) riding the row transfer
+        if n_blocks:
+            groups.append((entry.pend[:n_blocks], entry.pend_win[:n_blocks]))
+        if n_wide:
+            groups.append((entry.wide_rows, entry.wide_wins))
+        if total == 0 and not groups:
             if not self._sketch_blocks:
                 return []
             flat = np.zeros((0,), np.uint32)  # held blocks may still marry
         else:
-            rows = entry.packed[:total].reshape(-1)
-            flat = self._fetch(torch.cat([
-                rows, entry.pend[:n_blocks].reshape(-1),
-                to_i32_bits(entry.pend_win[:n_blocks]),
-            ]) if n_blocks else rows).view(np.uint32)
+            parts = [entry.packed[:total].reshape(-1)]
+            for rows, wins in groups:
+                parts += [rows.reshape(-1), to_i32_bits(wins)]
+            flat = self._fetch(torch.cat(parts) if len(parts) > 1 else parts[0]
+                               ).view(np.uint32)
         row_cols = entry.packed.shape[1]
         o = total * row_cols
         self.total_flushed += total
         flushed = self._split_rows(flat[:o].reshape(total, row_cols), total)
-        if n_blocks:
-            wide = entry.pend.shape[1]
-            block_rows = flat[o:o + n_blocks * wide].reshape(n_blocks, wide)
-            for blk in unpack_drained(block_rows, flat[o + n_blocks * wide:],
-                                      self.config.sketch):
+        for rows, _ in groups:
+            k, width = rows.shape
+            block_rows = flat[o:o + k * width].reshape(k, width)
+            wins = flat[o + k * width:o + k * width + k]
+            o += k * width + k
+            keep = wins != np.uint32(SENTINEL_WIN)
+            for blk in unpack_drained(block_rows[keep], wins[keep], self.config.sketch):
                 have = self._sketch_blocks.get(blk.window)
                 self._sketch_blocks[blk.window] = blk if have is None else have.merge(blk)
         for f in flushed:
@@ -477,13 +522,24 @@ class WindowManager:
 
     def _fold(self):
         """Full-set fold: every accumulated row reaches the stash and the
-        ring resets."""
+        ring resets. fold_mode picks the full re-sort or the rank merge."""
         if self.fill == 0:
             return
-        self.state, self.acc, self._fold_rows_dev = stash_fold_counted(
-            self.state, self.acc, self.meter_schema
-        )
+        fold = stash_merge_fold if self.config.fold_mode == "merge" else stash_fold_counted
+        self.state, self.acc, self._fold_rows_dev = fold(self.state, self.acc,
+                                                         self.meter_schema)
         self.fill = 0
+
+    def _fold_span(self, hi_window: int):
+        """Span-bounded advance fold (merge mode): merge only the ring rows
+        with slot < hi_window — the windows about to flush. `fill` stays:
+        consumed rows turn sentinel in place, and their ring space comes
+        back at the next full fold (plan_append)."""
+        if self.fill == 0:
+            return
+        self.state, self.acc, self._fold_rows_dev = stash_merge_fold(
+            self.state, self.acc, self.meter_schema, hi_window=hi_window
+        )
 
     def window_of(self, timestamp):
         return timestamp // self.config.interval
@@ -511,6 +567,9 @@ class WindowManager:
         # cumulative device scalars — mirror, don't accumulate
         self.sketch_rows = vec[CB_SKETCH_ROWS]
         self.sketch_shed = vec[CB_SKETCH_SHED]
+        self.sketch_pool_spill = vec[CB_SKETCH_POOL_SPILL]
+        self.sketch_pool_occ = vec[CB_SKETCH_POOL_OCC]
+        self.sketch_promotions = vec[CB_SKETCH_PROMOTIONS]
         self.aux_count += aux
         if n_valid == 0:
             return
@@ -530,9 +589,14 @@ class WindowManager:
         # packed matrix.
         new_start = self.window_of(max(t_max - self.config.delay, 0))
         if self.start_window < new_start:
-            self._fold()
+            # flushed windows must see every accumulated row of the
+            # closing span; merge mode folds only that span
+            if self.config.fold_mode == "merge":
+                self._fold_span(new_start)
+            else:
+                self._fold()
             self.state, packed, total = _flush_range_impl(
-                self.state, self.start_window, new_start
+                self.state, self.start_window, new_start, compact=self._flush_compact
             )
             self._pending_flush.append(
                 self._make_flush_entry(packed, total, self.start_window, new_start)
@@ -545,7 +609,8 @@ class WindowManager:
         drained pending blocks (every slot below `hi` closes first)."""
         entry = _FlushEntry(packed=packed, total=total, lo=int(lo), hi=int(hi))
         if self.sk is not None:
-            self.sk, entry.pend, entry.pend_win, entry.pend_n = sketch_drain(self.sk, hi)
+            (self.sk, entry.pend, entry.pend_win, entry.pend_n, entry.wide_rows,
+             entry.wide_wins) = sketch_drain(self.sk, hi)
         return entry
 
     # -- ingest ----------------------------------------------------------
@@ -622,7 +687,8 @@ class WindowManager:
         if self.start_window is None:
             return flushed
         self._fold()
-        self.state, packed, total = _flush_range_impl(self.state, 0, U32_MAX)
+        self.state, packed, total = _flush_range_impl(self.state, 0, U32_MAX,
+                                                      compact=self._flush_compact)
         self._pending_flush.append(self._make_flush_entry(packed, total, 0, U32_MAX))
         flushed += self.settle()
         for f in flushed:
@@ -650,6 +716,9 @@ class WindowManager:
             # sketch plane (CB lanes as of the last fetched block)
             "sketch_rows": self.sketch_rows,
             "sketch_shed": self.sketch_shed,
+            "sketch_pool_spill": self.sketch_pool_spill,
+            "sketch_pool_occ": self.sketch_pool_occ,
+            "sketch_promotions": self.sketch_promotions,
         }
 
     @property

@@ -6,8 +6,9 @@ midway between the two packages and both go on computing the same
 thing. The numpy form is the reference's `StashState` / `AccumState` /
 `SketchState` with `np.asarray` applied to each field (uint32 lanes,
 column-major [T, S] tags and [M, S] f32 meters, bool valid, int32
-counters and registers). Only the slab sketch plane crosses: a state
-whose pool fields are not empty is refused.
+counters and registers, int8 compact HLL registers in pool mode).
+Both sketch-plane modes cross; the pool fields are zero-size in slab
+mode, on both sides.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ _LANES = ("slot", "key_hi", "key_lo", "tags")
 
 def _common_from_numpy(d: dict, dev) -> dict:
     out = {k: from_numpy_u32(d[k], dev) for k in _LANES}
-    out["meters"] = torch.from_numpy(np.ascontiguousarray(d["meters"], np.float32)).to(dev)
+    # a copy: the port writes its lanes in place, the source may be read-only
+    out["meters"] = torch.from_numpy(np.array(d["meters"], np.float32)).to(dev)
     return out
 
 
@@ -60,30 +62,27 @@ def accum_to_numpy(acc: AccumState) -> dict:
     return _common_to_numpy(acc)
 
 
-# the reference's pooled-memory fields: zero-size in slab mode
-_POOL_FIELDS = ("slot_of", "p_hll", "p_cms", "p_hist", "p_tkv", "p_tkh", "p_tkl",
-                "p_tia", "p_tib", "wide_close", "wide_count")
-_I32_PLANES = ("hll", "cms", "hist", "tk_votes")
-_U32_PLANES = ("tk_hi", "tk_lo", "tk_ida", "tk_idb")
+_I32_PLANES = ("hll", "cms", "hist", "tk_votes", "p_cms", "p_hist", "p_tkv")
+_U32_PLANES = ("tk_hi", "tk_lo", "tk_ida", "tk_idb", "p_tkh", "p_tkl", "p_tia", "p_tib")
+_U32_LANES = ("win", "count", "wide_close", "wide_count")
+_SCALARS = ("rows", "shed", "pool_spill", "pool_promos")
 
 
 def sketch_from_numpy(d: dict, device=None) -> SketchState:
-    """A reference slab `SketchState` (fields as numpy) → the port's
-    plane on `device`; the pending buffer gains its scratch row."""
-    pooled = [k for k in _POOL_FIELDS if np.asarray(d.get(k, ())).size]
-    if pooled or any(int(d.get(k, 0)) for k in ("pool_spill", "pool_promos")):
-        raise ValueError(
-            f"sketch state carries pooled-memory fields {pooled or 'pool counters'}; "
-            "only the slab plane is ported"
-        )
+    """A reference `SketchState` (fields as numpy; slab or pool mode) →
+    the port's plane on `device`; the pending buffer gains its scratch
+    row."""
+    slot_of, pc, pw = np.asarray(d["slot_of"]), len(d["p_hll"]), len(d["wide_close"])
+    if slot_of.size not in (0, len(d["win"])) or ((slot_of < -1) | (slot_of >= pc + pw)).any():
+        raise ValueError(f"sketch state's pool slot map {slot_of.tolist()} does not fit its "
+                         f"ring of {len(d['win'])} and {pc} compact + {pw} wide arena slots")
     dev = resolve_device(device)
 
     def i32(x):
-        return torch.from_numpy(np.ascontiguousarray(x).astype(np.int32, copy=True)).to(dev)
+        return torch.from_numpy(np.array(x, dtype=np.int32)).to(dev)
 
     def bits(x):
-        return torch.from_numpy(
-            np.ascontiguousarray(np.asarray(x, np.uint32)).view(np.int32).copy()).to(dev)
+        return torch.from_numpy(np.array(x, dtype=np.uint32).view(np.int32)).to(dev)
 
     def scalar(x):
         return torch.tensor(int(x), dtype=torch.int64, device=dev)
@@ -91,24 +90,29 @@ def sketch_from_numpy(d: dict, device=None) -> SketchState:
     pend = np.asarray(d["pend"], np.uint32)
     pend_win = np.asarray(d["pend_win"], np.uint32)
     return SketchState(
-        win=from_numpy_u32(d["win"], dev), count=from_numpy_u32(d["count"], dev),
+        **{k: from_numpy_u32(d[k], dev) for k in _U32_LANES},
         **{k: i32(d[k]) for k in _I32_PLANES}, **{k: bits(d[k]) for k in _U32_PLANES},
+        **{k: scalar(d[k]) for k in _SCALARS},
         pend=bits(np.concatenate([pend, np.zeros((1, pend.shape[1]), np.uint32)])),
         pend_win=from_numpy_u32(np.append(pend_win, np.uint32(SENTINEL_WIN)), dev),
-        pend_n=scalar(d["pend_n"]), rows=scalar(d["rows"]), shed=scalar(d["shed"]),
+        pend_n=scalar(d["pend_n"]),
+        slot_of=torch.from_numpy(np.array(d["slot_of"], dtype=np.int64)).to(dev),
+        p_hll=torch.from_numpy(np.array(d["p_hll"], dtype=np.int8)).to(dev),
+        promote_fill=torch.tensor(float(d["promote_fill"]), dtype=torch.float32, device=dev),
     )
 
 
 def sketch_to_numpy(sk: SketchState) -> dict:
-    """The port's plane → the reference's slab fields as numpy, with the
+    """The port's plane → the reference's fields as numpy, with the
     reference's dtypes (scratch row dropped)."""
     p = sk.pending
-    out = {"win": to_numpy_u32(sk.win), "count": to_numpy_u32(sk.count)}
+    out = {k: to_numpy_u32(getattr(sk, k)) for k in _U32_LANES + _U32_PLANES}
     out.update({k: getattr(sk, k).detach().cpu().numpy() for k in _I32_PLANES})
-    out.update({k: to_numpy_u32(getattr(sk, k)) for k in _U32_PLANES})
+    out.update({k: np.uint32(int(getattr(sk, k))) for k in _SCALARS})
     out["pend"] = to_numpy_u32(sk.pend[:p])
     out["pend_win"] = to_numpy_u32(sk.pend_win[:p])
     out["pend_n"] = np.int32(int(sk.pend_n))
-    out["rows"] = np.uint32(int(sk.rows))
-    out["shed"] = np.uint32(int(sk.shed))
+    out["slot_of"] = sk.slot_of.detach().cpu().numpy().astype(np.int32)
+    out["p_hll"] = sk.p_hll.detach().cpu().numpy()
+    out["promote_fill"] = np.float32(float(sk.promote_fill))
     return out

@@ -6,7 +6,8 @@ one avalanche round. `row_slots` is the device form over u32 lanes
 (int64 tensors — every multiply through `u32.mul`, ops/u32.py);
 `row_slots_np` and `cms_query_np` are the host forms over fetched
 blocks. The CUDA sketch kernel (kernels/sketch_fused.cu) recomputes the
-same columns with native uint32 arithmetic.
+same columns with native uint32 arithmetic. `cms_expand` up-tiles a
+pooled compact plane (aggregator/sketchplane.py, pool mode).
 """
 
 from __future__ import annotations
@@ -51,3 +52,15 @@ def cms_query_np(state, hash_hi, hash_lo) -> np.ndarray:
     slots = row_slots_np(hash_hi, hash_lo, depth, width)
     vals = state.reshape(-1)[slots.reshape(-1)].reshape(depth, -1)
     return vals.min(axis=0)
+
+
+def cms_expand(compact, width: int, xp=torch):
+    """Up-tile a pooled compact [depth, Wc] plane to [depth, width]
+    (`xp` torch for a tensor, np for a fetched block). The column hash is
+    width-independent, so for Wc | width (both powers of two) a key's
+    compact column is its wide column mod Wc: tiling puts every compact
+    counter at each wide column that folds onto it, and point queries
+    read the same estimate from either plane."""
+    wc = compact.shape[-1]
+    assert width % wc == 0 and width & (width - 1) == 0, (wc, width)
+    return xp.tile(compact, (1, width // wc))

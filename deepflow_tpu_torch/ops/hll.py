@@ -3,8 +3,9 @@
 The sketch plane keeps a dense [G, m] int32 register plane per open
 window; an update is a scatter-max of rho = clz32(hash_hi) + 1 at
 register hash_lo & (m-1). `clz32` runs on the device over u32 lanes
-(int64 tensors, ops/u32.py); the estimate, the packed-register wire form
-and its inverse are host numpy over fetched blocks, as in the reference.
+(int64 tensors, ops/u32.py); the estimate and the packed-register
+inverse are host numpy over fetched blocks, as in the reference, and the
+packing runs on both sides.
 """
 
 from __future__ import annotations
@@ -43,13 +44,17 @@ def hll_estimate_np(state) -> np.ndarray:
     return np.where(use_linear, linear, raw)
 
 
-def hll_pack_registers(regs) -> np.ndarray:
+def hll_pack_registers(regs):
     """[..., m] registers → [..., m//4] u32 words, 4 per word, byte 0 =
-    register 0 (the pooled block's wire form; m divisible by 4)."""
-    r = np.asarray(regs).astype(np.uint32) & np.uint32(0xFF)
+    register 0 (the pooled block's wire form; m divisible by 4). A tensor
+    (the int8 compact registers on the device) gives an int64 u32 lane,
+    an array a uint32 array."""
+    if isinstance(regs, torch.Tensor):
+        r = regs.to(torch.int64) & 0xFF
+    else:
+        r = np.asarray(regs).astype(np.uint32) & np.uint32(0xFF)
     b = r.reshape(r.shape[:-1] + (r.shape[-1] // 4, 4))
-    return (b[..., 0] | (b[..., 1] << np.uint32(8)) | (b[..., 2] << np.uint32(16))
-            | (b[..., 3] << np.uint32(24)))
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
 
 
 def hll_unpack_registers_np(words, m: int) -> np.ndarray:

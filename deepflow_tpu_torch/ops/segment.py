@@ -15,6 +15,12 @@ order, ties included. The sketch plane's one shared batch sort
 (aggregator/sketchplane.py) reuses the same two passes (`sort_perm`),
 with the absolute window in place of the slot and no sentinel rekey.
 
+The incremental merge fold (aggregator/stash.py) merges two runs that
+are already sorted by (slot, hi, lo) without sorting them again:
+`merge_ranks` finds each element's merged position by a vectorized
+binary search (`lex_searchsorted`) into the other run, and
+`merge_order` inverts the ranks — a permutation — with one scatter.
+
 Layout at the interface matches the reference: tags column-major
 [T, N], meters row-major [N, M] (row-contiguous — the kernel reads one
 row per step), key lanes u32 (ops/u32.py lane rule).
@@ -150,3 +156,63 @@ def groupby_reduce_sorted(s_slot, s_hi, s_lo, perm, tags_t, meters_rows,
     out_meters = torch.where(seg_valid[None, :], out_meters, 0.0).contiguous()
     return Grouped(slot=out_slot, key_hi=out_hi, key_lo=out_lo, tags=out_tags,
                    meters=out_meters, seg_valid=seg_valid, num_segments=num_seg)
+
+
+def _lex_less(a_sl, a_hi, a_lo, b_sl, b_hi, b_lo):
+    """Elementwise lexicographic (slot, hi, lo) compare of u32 lanes."""
+    return (a_sl < b_sl) | ((a_sl == b_sl) & ((a_hi < b_hi) | ((a_hi == b_hi) & (a_lo < b_lo))))
+
+
+def lex_searchsorted(keys, queries, *, side: str) -> torch.Tensor:
+    """`searchsorted` over a lexicographic (slot, hi, lo) triple: keys
+    [N] ascending under `_lex_less`, queries [Q] → [Q] int64 insertion
+    points (side="left": keys strictly less; "right": keys less or
+    equal). A binary search unrolled ceil(log2(N+1)) times, one 3-lane
+    gather and compare per step."""
+    if side not in ("left", "right"):
+        raise ValueError(f"side must be 'left' or 'right', got {side!r}")
+    k_sl, k_hi, k_lo = keys
+    q_sl, q_hi, q_lo = queries
+    n = int(k_sl.shape[0])
+    lo = torch.zeros(q_sl.shape, dtype=torch.int64, device=q_sl.device)
+    if n == 0:
+        return lo
+    hi = torch.full(q_sl.shape, n, dtype=torch.int64, device=q_sl.device)
+    for _ in range(n.bit_length()):
+        # a finished lane (lo == hi == n) would read past the end: clamp
+        # it, its result is masked out below
+        mid = ((lo + hi) >> 1).clamp_(max=n - 1)
+        m_sl, m_hi, m_lo = k_sl[mid], k_hi[mid], k_lo[mid]
+        if side == "left":
+            go_right = _lex_less(m_sl, m_hi, m_lo, q_sl, q_hi, q_lo)
+        else:
+            go_right = ~_lex_less(q_sl, q_hi, q_lo, m_sl, m_hi, m_lo)
+        active = lo < hi
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo
+
+
+def merge_ranks(first, second):
+    """Merged positions of two key-sorted (slot, hi, lo) runs: `first`
+    elements precede equal `second` elements and each run keeps its own
+    order — the order a stable sort of first ‖ second gives. Returns
+    (rank_first [S], rank_second [A]) int64, together a permutation of
+    [0, S + A)."""
+    dev = first[0].device
+    rank_f = torch.arange(first[0].shape[0], device=dev) + lex_searchsorted(
+        second, first, side="left")
+    rank_s = torch.arange(second[0].shape[0], device=dev) + lex_searchsorted(
+        first, second, side="right")
+    return rank_f, rank_s
+
+
+def merge_order(rank_f, rank_s, payload_f, payload_s) -> torch.Tensor:
+    """Invert merge ranks into a gather order: [S + A] int64 whose
+    position p holds the payload of the element of merged rank p. The
+    ranks are a permutation, so one scatter does it (the reference's
+    DEEPFLOW_MERGE_SCATTER=1 form; its default sort gives the same)."""
+    rank = torch.cat([rank_f, rank_s])
+    order = torch.empty_like(rank)
+    order[rank] = torch.cat([payload_f, payload_s]).to(torch.int64)
+    return order

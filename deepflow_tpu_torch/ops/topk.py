@@ -16,8 +16,9 @@ Lane dtypes: votes int32; key and id lanes int32 bit patterns of u32
 values (ops/u32.to_i32_bits), so that a packed block row is one int32
 concatenation. The reference's multi-sort oracle `topk_update`
 (DEEPFLOW_SHARED_SORT=0) is not ported: the port always takes the
-shared sort, the reference's default. `topk_candidates`/`topk_select`
-are the host inversion over fetched blocks.
+shared sort, the reference's default. `topk_tile` (pool promotion) and
+`topk_merge` act on lane tuples; `topk_candidates`/`topk_select` are the
+host inversion over fetched blocks.
 """
 
 from __future__ import annotations
@@ -107,6 +108,31 @@ def topk_challengers_presorted(s_slot, s_hi, s_lo, s_ia, s_ib, rw, s_mask,
         challengers.append((got, to_i32_bits(s_hi[wr]), to_i32_bits(s_lo[wr]),
                             to_i32_bits(s_ia[wr]), to_i32_bits(s_ib[wr]), hw))
     return challengers
+
+
+def topk_tile(lanes, cols: int):
+    """Up-tile one pooled compact slot's lanes ([d, Cc] each) to [d, cols]
+    wide buckets (pool promotion). The bucket hash is width-independent,
+    so a key's compact bucket is its wide bucket mod Cc: tiling keeps the
+    key's own entry in its true wide bucket; the copies in other wide
+    buckets are spurious candidates that `topk_select` dedupes."""
+    cc = lanes[0].shape[-1]
+    assert cols % cc == 0 and cols & (cols - 1) == 0, (cc, cols)
+    return tuple(torch.tile(x, (1, cols // cc)) for x in lanes)
+
+
+def topk_merge(a, b):
+    """Bucket-wise MJRTY combine of two same-shape lane tuples (votes,
+    hi, lo, ia, ib): the same key adds votes; different keys leave the
+    heavier key with the vote difference."""
+    va, ha, la, aa, ab = a
+    vb, hb, lb, ba, bb = b
+    va, vb = va.clamp(min=0), vb.clamp(min=0)
+    same = (ha == hb) & (la == lb)
+    take_b = ~same & (vb > va)
+    v = torch.where(same, va + vb, (va - vb).abs())
+    return (v,) + tuple(torch.where(take_b, y, x)
+                        for x, y in ((ha, hb), (la, lb), (aa, ba), (ab, bb)))
 
 
 def topk_candidates(votes, key_hi, key_lo, id_a, id_b):

@@ -202,3 +202,108 @@ def test_segreduce_kernel_segment_shapes(cuda, gather, m, case):
     assert torch.equal(ks.isnan(), ps[keep].isnan()) and torch.equal(km.isnan(), pm[keep].isnan())
     assert torch.equal(ks.nan_to_num(), ps[keep].nan_to_num())
     assert torch.equal(km.nan_to_num(), pm[keep].nan_to_num())
+
+
+def _merge_case(seed, scap=4096, acap=12288, n_keys=3000):
+    """A canonical stash (one seeded ring folded in) and a second ring, on
+    the CPU: integer-valued meters, so sums are exact in any order."""
+    from deepflow_tpu_torch.aggregator import stash
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+
+    rng = np.random.default_rng(seed)
+
+    def ring(fill):
+        acc = stash.accum_init(acap, TAG_SCHEMA, FLOW_METER, device="cpu")
+        k = rng.integers(0, n_keys, fill)
+        slot = rng.integers(7, 11, fill)
+        slot[rng.random(fill) < 0.1] = 0xFFFFFFFF
+        acc.slot[:fill] = torch.from_numpy(slot)
+        acc.key_hi[:fill] = torch.from_numpy(k * 2654435761 % 2 ** 32)
+        acc.key_lo[:fill] = torch.from_numpy(k)
+        acc.tags[:, :fill] = torch.from_numpy(rng.integers(0, 2 ** 32, (acc.tags.shape[0], fill)))
+        acc.meters[:, :fill] = torch.from_numpy(
+            rng.integers(0, 5000, (acc.meters.shape[0], fill)).astype(np.float32))
+        return acc
+
+    state = stash.stash_init(scap, TAG_SCHEMA, FLOW_METER, device="cpu")
+    state, _, _ = stash.stash_fold_counted(state, ring(acap - 100), FLOW_METER)
+    return state, ring(acap // 2)
+
+
+def _to(x, dev):
+    import dataclasses
+
+    return type(x)(**{f.name: getattr(x, f.name).clone().to(dev)
+                      for f in dataclasses.fields(x)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hi_window", [None, 9], ids=["full_set", "span"])
+def test_merge_fold_card_matches_cpu(cuda, hi_window):
+    """The merge fold on the card (segreduce kernel through the merged
+    order) equals the CPU's, and the card's full fold of the same rows."""
+    import dataclasses
+
+    from deepflow_tpu_torch.aggregator import stash
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER
+
+    state, acc = _merge_case(51)
+    host, host_acc, host_rows = stash.stash_merge_fold(_to(state, "cpu"), _to(acc, "cpu"),
+                                                       FLOW_METER, hi_window=hi_window)
+    segreduce.reset_launch_counts()
+    card, card_acc, card_rows = stash.stash_merge_fold(_to(state, cuda), _to(acc, cuda),
+                                                       FLOW_METER, hi_window=hi_window)
+    torch.cuda.synchronize()
+    assert segreduce.LAUNCHES["segreduce_gather"] == 1
+    assert int(card_rows) == int(host_rows) > 0
+    for f in dataclasses.fields(card):
+        assert torch.equal(getattr(card, f.name).cpu(), getattr(host, f.name)), f.name
+    assert torch.equal(card_acc.slot.cpu(), host_acc.slot)
+    if hi_window is None:
+        full, _, _ = stash.stash_fold_counted(_to(state, cuda), _to(acc, cuda), FLOW_METER)
+        for f in dataclasses.fields(card):
+            assert torch.equal(getattr(card, f.name), getattr(full, f.name)), f.name
+
+
+@pytest.mark.cuda
+def test_pooled_plane_step_card_matches_cpu(cuda):
+    """Pooled sketch steps (compact seating, a promotion, compact and
+    wide closes, the drain) on the card equal the CPU's, every field;
+    latencies sit at bin centres so the card's logf cannot move a bin.
+    Pool mode launches no sketch_fused kernel."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.aggregator import sketchplane as sp
+    from deepflow_tpu_torch.ops.histogram import LogHistSpec
+
+    spec = LogHistSpec(bins=64, vmin=1.0, gamma=1.2)
+    cfg = sp.SketchConfig(num_groups=4, hll_precision=8, cms_depth=3, cms_width=512, hist=spec,
+                          topk_rows=2, topk_cols=128, pending=10, pool=sp.PoolConfig())
+    rng = np.random.default_rng(52)
+    planes = {d: sp.sketch_init(cfg, 4, device=d) for d in ("cpu", cuda)}
+    sketch_fused.reset_launch_counts()
+    sw = 0
+    for lo_w, keys in ((10, 400), (10, 30), (11, 400), (13, 30), (15, 400)):
+        n = 512
+        win = rng.integers(lo_w, lo_w + 2, n)
+        kid = rng.integers(0, keys, n)
+        close_w = max(sw, int(win.max()) - 2)
+        base_w = max(sw, min(int(win.min()), close_w))
+        sw = close_w
+        x = dict(window=win, valid=rng.random(n) > 0.1, group=rng.integers(0, 4, n),
+                 client_hi=rng.integers(0, 2 ** 32, n), client_lo=rng.integers(0, 2 ** 32, n),
+                 key_hi=kid * 2654435761 % 2 ** 32, key_lo=kid, id_a=kid,
+                 id_b=rng.integers(0, 2 ** 32, n),
+                 weight=rng.integers(0, 600, n).astype(np.float32),
+                 rtt=(spec.vmin * spec.gamma ** (rng.integers(0, 64, n) + 0.5)).astype(np.float32),
+                 rtt_valid=rng.random(n) > 0.2)
+        for d in planes:
+            t = {k: torch.from_numpy(np.asarray(v)).to(d) for k, v in x.items()}
+            planes[d] = sp.sketch_plane_step(planes[d], spec, base_w=base_w, close_w=close_w, **t)
+        want, got = (convert.sketch_to_numpy(planes[d]) for d in ("cpu", cuda))
+        for k in want:
+            np.testing.assert_array_equal(want[k], got[k], err_msg=k)
+    assert int(planes[cuda].pool_promos) > 0
+    drained = [sp.sketch_drain(planes[d], 2 ** 32 - 1) for d in ("cpu", cuda)]
+    for a, b in zip(drained[0][1:], drained[1][1:]):
+        assert torch.equal(a, b.cpu())
+    assert sketch_fused.LAUNCHES["sketch_fused"] == 0

@@ -297,10 +297,19 @@ def test_entry_points_default_to_cuda():
                                 dict(async_drain=True)],
                          ids=["sketch", "cascade", "merge", "stats_ring", "async"])
 def test_unported_window_options_raise(kw):
-    """The slab sketch plane is ported; its pooled memory is not."""
-    from deepflow_tpu_torch.aggregator.sketchplane import SketchConfig
+    """The cascade, the counter ring and async_drain are not ported and
+    raise; pooled sketch memory and the merge fold are, and build (a pool
+    that is no PoolConfig is a type error)."""
+    from deepflow_tpu_torch.aggregator.sketchplane import PoolConfig, SketchConfig
 
-    with pytest.raises(NotImplementedError):
-        if "sketch" in kw:
-            kw = dict(sketch=SketchConfig(**kw["sketch"]))
-        WindowConfig(**kw)
+    if "sketch" in kw:
+        with pytest.raises(TypeError, match="PoolConfig"):
+            SketchConfig(**kw["sketch"])
+        assert WindowConfig(sketch=SketchConfig(pool=PoolConfig())).sketch.pool.wide_slots == 1
+    elif "fold_mode" in kw:
+        assert WindowConfig(**kw).fold_mode == "merge"
+        with pytest.raises(ValueError, match="fold_mode"):
+            WindowConfig(fold_mode="ring")
+    else:
+        with pytest.raises(NotImplementedError):
+            WindowConfig(**kw)

@@ -157,7 +157,8 @@ def test_plane_step_state_bit_equal(fused, pending, topk_rows):
     assert int(sk.shed) > 0  # the giant jump's mid-gap rows, counted
     assert int(sk.rows) > 0
     r_sk, r_pend, r_pwin, r_n, _, _ = ref_sp.sketch_drain(r_sk, jnp.uint32(2 ** 32 - 1))
-    sk, pend, pwin, n = sketchplane.sketch_drain(sk, 2 ** 32 - 1)
+    sk, pend, pwin, n, wide_rows, _ = sketchplane.sketch_drain(sk, 2 ** 32 - 1)
+    assert wide_rows is None  # slab mode has no wide arena
     assert int(r_n) == int(n) > 0
     np.testing.assert_array_equal(np.asarray(r_pend)[:int(n)],
                                   pend[:int(n)].numpy().view(np.uint32))
@@ -431,12 +432,18 @@ def test_stream_split_midway_carries_sketch_state(monkeypatch):
 
 
 def test_convert_refuses_pooled_state():
+    """A pooled plane crosses with every pool field; one whose slot map
+    names an arena slot the state does not hold is refused."""
     pooled = ref_sp.SketchConfig(
         num_groups=4, hll_precision=7, cms_depth=2, cms_width=256,
         hist=RefLogHistSpec(**_HIST), topk_rows=2, topk_cols=64, pending=8,
         pool=ref_sp.PoolConfig(compact_slots=2, wide_slots=1))
-    with pytest.raises(ValueError, match="slab"):
-        convert.sketch_from_numpy(_np_state(ref_sp.sketch_init(pooled, 4)), device="cpu")
+    d = _np_state(ref_sp.sketch_init(pooled, 4))
+    _assert_plane_equal(ref_sp.sketch_init(pooled, 4),
+                        convert.sketch_from_numpy(d, device="cpu"))
+    d["slot_of"] = np.array([0, 3, -1, -1], np.int32)  # 2 compact + 1 wide: no slot 3
+    with pytest.raises(ValueError, match="pool"):
+        convert.sketch_from_numpy(d, device="cpu")
 
 
 def test_sketch_fetch_budget(monkeypatch):
@@ -469,7 +476,7 @@ def test_sketch_entry_points_default_to_cuda_and_pool_raises():
             sketchplane.sketch_init(cfg, 4)
         with pytest.raises(RuntimeError, match="CUDA"):
             pipeline.L4Pipeline(pipeline.PipelineConfig(window=window.WindowConfig(sketch=cfg)))
-    with pytest.raises(NotImplementedError, match="pool"):
+    with pytest.raises(TypeError, match="PoolConfig"):
         sketchplane.SketchConfig(pool=object())
     with pytest.raises(TypeError):
         window.WindowConfig(sketch=object())
