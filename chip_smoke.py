@@ -12,11 +12,14 @@ loudly with a nonzero exit:
    source, started together) into deepflow_tpu_torch/_build/.
 2. Kernel parity at the full-width main-path shapes: every segmented-
    reduce launcher against its plain PyTorch version on the same
-   inputs, at the pre-reduce shape (N = 2^21 rows, cap = 2^15) and the
+   inputs, at the pre-reduce shape (N = 2^21 rows, cap = 2^15), the
    fold shape (N = 2^16 + 2·4·2^15, cap = 2^16, in the full fold's
-   sorted order and in the merge fold's merged order), with rows from
-   SyntheticFlowGen(10_000, seed=0) through the port's own pre-reduce,
-   fanout and stash. Live segments only; SUM lanes within rtol 1e-5
+   sorted order and in the merge fold's merged order) and the cascade's
+   tier-merge shape (N = 2^18 tier + 2^19 ring + 2^18 flush rows, cap =
+   2^18, at the ninth 1-window tier step of the bench.py stream), with
+   rows from SyntheticFlowGen(10_000, seed=0) through the port's own
+   pre-reduce, fanout, stash and tier step. Live segments only; SUM
+   lanes within rtol 1e-5
    (summation order), MAX lanes exact. Times: the call (CUDA events
    around the wrapper, median of 20), the kernel's device time alone
    (torch.profiler over 20 calls) and the library's (torch.segment_reduce
@@ -61,19 +64,38 @@ loudly with a nonzero exit:
    to a spill has the slab run's HLL registers and a distinct() within
    2%, and spilled rows account for the rest. Both planes' resident
    bytes are printed (sums of tensor sizes).
+3f. The cascade main path, counts zeroed before and read after:
+   L4Pipeline (batch 2^21 of SyntheticFlowGen(10_000, seed=0), stash
+   2^18, the slab sketch plane) with a minute + hour cascade of 2^18-row
+   tier stashes over seconds T0+34 … T0+45 and a drain. T0 is 20 s into
+   its minute, so a minute closes during the ingest. Checks: 12 one-
+   second windows, 2 minute and 1 hour windows; each minute's keys are
+   its seconds' keys, its SUM meters the f32 fold of their docs in
+   window order (rtol 1e-5) and its MAX meters their max (exact); the
+   hour's packets equal the minutes'; the cascade lanes after the drain
+   are [1 s rows + minute rows, 0]; each minute sketch block equals the
+   merge of its seconds' blocks and its distinct() is within 2% of the
+   exact client count; ≤ 3 fetches per ingest; segreduce launches
+   inside the tier steps; no device→host copy in the profiler traces of
+   two on_advance calls (a 1-window append, the minute close). Then the
+   device time and launches of one tier step and of one tier close.
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
    equal, except that histogram counts may move to an adjacent bin
    (CUDA logf vs the CPU's) — group totals must still agree; then with
    pooled memory and the merge fold (4c), counter lanes 18–20 included
-   and histograms compared at the compact bin width.
+   and histograms compared at the compact bin width; then the cascade
+   (4d: 2^16-row window and tier stashes, ~13k docs a second, a minute
+   boundary, a fold+append and a direct fold), with the full fold and
+   the slab plane and with the merge fold and pooled memory: tier
+   windows, tier sketch blocks, cascade lanes and counters exact.
 5. One JSON line of each cycle's records/s (with its device idle share
    and kernel launches, and the launches of one fold alone in each fold
    mode), then one of the kernels (with the card's name and power limit;
    each row with ms, device_ms, plain_ms, bound_ms, bound_by and
-   library_ms, the segreduce rows also at the fold and merge-fold
-   shapes), then the last line
+   library_ms, the segreduce rows also at the fold, merge-fold and
+   tier-fold shapes), then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -116,6 +138,13 @@ SKETCH_KERNEL = ("sketch_fused", "deepflow_tpu/ops/sketch_pallas.py:107",
 DELAY = 2
 RING = DELAY + 2  # open windows at interval 1
 DISTINCT_RTOL = 0.02
+# the rollup cascade: a minute and an hour tier. T0 is 20 s into its
+# minute, so the minute [T0 − 20, T0 + 40) closes during the stream of
+# seconds T0+34 … T0+45, once T0+42 arrives
+CASCADE_INTERVALS = (60, 3600)
+CASCADE_SECONDS = list(range(34, 46))
+TIER_SMALL = 1 << 16  # phase 4d: window and tier stash rows
+TIER_SMALL_TUPLES = 4000  # ~13k docs a second: 4 open windows hold ~53k rows
 
 
 def sketch_config():
@@ -278,7 +307,56 @@ def kernel_operands(dev):
                                                         acc.meters)
     merge_ops = sorted_operands(m_sl, m_hi, m_lo, order, m_rows, CAPACITY)
     check(merge_ops["live"] == fold_ops["live"], "merge and full fold segment counts differ")
-    return {"prereduce": pre, "fold": fold_ops, "merge_fold": merge_ops}
+    t_slot, t_hi, t_lo, _, t_rows, t_valid = tier_merge_operands(dev)
+    tier_ops = operands(t_slot, t_hi, t_lo, t_rows, t_valid, STASH_CAPACITY)
+    return {"prereduce": pre, "fold": fold_ops, "merge_fold": merge_ops, "tier_fold": tier_ops}
+
+
+def tier_merge_operands(dev):
+    """The group-by operands of the cascade's tier merge at full width:
+    nine consecutive seconds of the bench.py stream, each pre-reduced,
+    fanned out and folded into a 2^18-row stash and flushed, go through
+    the port's tier step into a 2^18-row minute tier; at the ninth the
+    2^19-row ring is full (fold+append), and its merge sorts tier stash ‖
+    ring ‖ the 2^18 packed flush rows (masked: they append) — 2^20 rows
+    with a live tier stash. Returns fold_operands' tuple."""
+    from deepflow_tpu_torch.aggregator import cascade
+    from deepflow_tpu_torch.aggregator.fanout import FANOUT_LANES, FanoutConfig
+    from deepflow_tpu_torch.aggregator.pipeline import make_ingest_step, upload_flow_batch
+    from deepflow_tpu_torch.aggregator.stash import (
+        _flush_range_impl, accum_init, fold_operands, stash_init,
+    )
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    append, fold = make_ingest_step(FanoutConfig(), interval=1,
+                                    batch_unique_cap=UNIQUE_CAP, device=dev)
+    gen = SyntheticFlowGen(num_tuples=10_000, seed=0)
+    num_tags = TAG_SCHEMA.num_fields
+    prefix = cascade.tier_prefix(STASH_CAPACITY)
+    tier = stash_init(STASH_CAPACITY, TAG_SCHEMA, FLOW_METER, device=dev)
+    acc = accum_init(cascade.tier_ring_rows(STASH_CAPACITY), TAG_SCHEMA, FLOW_METER,
+                     device=dev)
+    fill = torch.zeros((), dtype=torch.int64, device=dev)
+    lanes = torch.zeros((2,), dtype=torch.int64, device=dev)
+    for k, s in enumerate(CASCADE_SECONDS[:9]):
+        tags, meters, valid = upload_flow_batch(gen.flow_batch(BATCH, T0 + s), dev)
+        child = stash_init(STASH_CAPACITY, TAG_SCHEMA, FLOW_METER, device=dev)
+        ring = accum_init(FANOUT_LANES * UNIQUE_CAP, TAG_SCHEMA, FLOW_METER, device=dev)
+        child, ring = fold(*append(child, ring, 0, tags, meters, valid))
+        _, packed, total = _flush_range_impl(child, T0 + s, T0 + s + 1)
+        hi = T0 + s + 1
+        if k < 8:
+            tier, acc, fill, lanes = cascade.tier_step(
+                tier, acc, fill, lanes, packed, total, hi, ratio=CASCADE_INTERVALS[0],
+                meter_schema=FLOW_METER, num_tags=num_tags, prefix=prefix)
+            continue
+        check(int(fill) + prefix > acc.capacity and 0 < int(total) <= prefix
+              and int(tier.valid.sum()) > 0, "tier_fold: the ninth step is no fold+append")
+        cols = list(cascade._parent_columns(packed, hi, ratio=CASCADE_INTERVALS[0],
+                                            num_tags=num_tags))
+        cols[5] = cols[5] & (total > prefix)  # the tier step's mask: rows append
+        return fold_operands(tier, *cascade.merge_row_lanes(acc, cols))
 
 
 def kernel_parity(name: str, ops: dict) -> dict:
@@ -587,12 +665,18 @@ def bench_cycle(dev, cycles: int, with_profile: bool = False, sketch=None,
 
 
 def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
-                    fold_mode: str = "full") -> dict:
+                    fold_mode: str = "full", *, cascade=None, capacity: int = STASH_CAPACITY,
+                    tuples: int = 10_000, seed: int = 1, profile_his=(),
+                    capture_his=(), profile_dt: int | None = None) -> dict:
     """L4Pipeline over one SyntheticFlowGen stream (sketch plane on with
-    `sketch`, the fold of `fold_mode`): the windows closed before the
-    drain, all DocBatches, the counters, every counter block, the closed
-    sketch blocks, the host fetches of each ingest, and each second's
-    client words."""
+    `sketch`, the fold of `fold_mode`, the rollup cascade with
+    `cascade`): the windows closed before the drain, all DocBatches, the
+    counters, every counter block, the closed sketch blocks, the host
+    fetches of each ingest, and the client words' distinct counts per
+    second and per minute; with the cascade, the (interval, DocBatch)
+    tier windows, the merged tier sketch blocks, the cascade's device
+    lanes after the drain and the `record_advances` records. With
+    `profile_dt`, that second's ingest runs under `profile_cycle`."""
     from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
     from deepflow_tpu_torch.aggregator.window import WindowConfig
     from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
@@ -600,8 +684,9 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
     # ~33k docs a second at 10k tuples; with delay=2 the fold before an
     # advance holds four windows (the closing one included): 2^18 rows
     pipe = L4Pipeline(PipelineConfig(
-        window=WindowConfig(capacity=STASH_CAPACITY, accum_batches=ACCUM_BATCHES,
-                            delay=DELAY, sketch=sketch, fold_mode=fold_mode),
+        window=WindowConfig(capacity=capacity, accum_batches=ACCUM_BATCHES,
+                            delay=DELAY, sketch=sketch, fold_mode=fold_mode,
+                            cascade=cascade),
         batch_size=batch, batch_unique_cap=min(UNIQUE_CAP, batch),
     ), device=device)
     blocks = []
@@ -612,22 +697,286 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
         process(vec)
 
     pipe.wm._process_block = record
-    gen = SyntheticFlowGen(num_tuples=10_000, seed=1)
-    docs, fetches, clients = [], [], {}
+    advances = (record_advances(pipe.wm, profile_his, capture_his)
+                if cascade is not None else [])
+    gen = SyntheticFlowGen(num_tuples=tuples, seed=seed)
+    ingest_profile = None
+    t_start = time.perf_counter()
+    docs, fetches, words, tiers = [], [], {}, []
     for dt in seconds:
         fb = gen.flow_batch(batch, T0 + dt)
-        words = np.stack([fb.tags[f"ip0_w{w}"] for w in range(4)], axis=1)[fb.valid]
-        clients.setdefault(T0 + dt, []).append(words)
+        words.setdefault(T0 + dt, []).append(unique_pairs(
+            *(fb.tags[f"ip0_w{w}"][fb.valid] for w in range(4))))
         before = pipe.wm.host_fetches
-        docs += pipe.ingest(fb)
+        if dt == profile_dt:
+            ingest_profile = profile_cycle(lambda: docs.extend(pipe.ingest(fb)))
+        else:
+            docs += pipe.ingest(fb)
         fetches.append(pipe.wm.host_fetches - before)
+        tiers += pipe.pop_tier_docbatches()
     closed_before_drain = len(docs)
     docs += pipe.drain()
-    return {"closed": closed_before_drain, "docs": docs, "counters": pipe.counters,
+    tiers += pipe.pop_tier_docbatches()
+    by_minute = {}
+    for w, v in words.items():
+        by_minute.setdefault(w // 60, []).extend(v)
+
+    def distinct(groups) -> int:
+        return len(unique_pairs_of(groups))
+
+    held = pipe.get_counters()
+    return {"seconds": time.perf_counter() - t_start, "closed": closed_before_drain, "docs": docs, "counters": pipe.counters,
             "blocks": blocks, "sketches": pipe.pop_closed_sketches(), "fetches": fetches,
-            "sketch_blocks_dropped": pipe.get_counters()["sketch_blocks_dropped"],
-            "clients": {w: len(np.unique(np.concatenate(v), axis=0))
-                        for w, v in clients.items()}}
+            "sketch_blocks_dropped": held["sketch_blocks_dropped"],
+            "clients": {w: distinct(v) for w, v in words.items()},
+            "minute_clients": {m: distinct(v) for m, v in by_minute.items()},
+            "tiers": tiers, "tier_sketches": pipe.closed_tier_sketches,
+            "tier_sketch_blocks_dropped": held.get("tier_sketch_blocks_dropped"),
+            "advances": advances, "ingest_profile": ingest_profile,
+            "cascade_lanes": (None if cascade is None
+                              else [int(v) for v in pipe.wm.cascade.lanes_dev.tolist()])}
+
+
+def unique_pairs(w0, w1, w2, w3) -> np.ndarray:
+    """The distinct 128-bit client addresses among four u32 word lanes,
+    as sorted [n, 2] u64 (hi, lo) pairs (a lexsort: np.unique over rows
+    of a 2^21-row batch takes seconds)."""
+    u64 = lambda x: np.asarray(x).astype(np.uint64)  # noqa: E731
+    pairs = np.stack([(u64(w0) << np.uint64(32)) | u64(w1),
+                      (u64(w2) << np.uint64(32)) | u64(w3)], axis=1)
+    return unique_pairs_of([pairs])
+
+
+def unique_pairs_of(groups) -> np.ndarray:
+    """The distinct rows of [n, 2] u64 arrays, sorted."""
+    p = np.concatenate(groups)
+    p = p[np.lexsort((p[:, 1], p[:, 0]))]
+    keep = np.ones(len(p), bool)
+    keep[1:] = (p[1:] != p[:-1]).any(axis=1)
+    return p[keep]
+
+
+def _clone(x):
+    return type(x)(**{f.name: getattr(x, f.name).clone() for f in dataclasses.fields(x)})
+
+
+def record_advances(wm, profile_his=(), capture_his=()) -> list:
+    """Wrap the cascade's on_advance. Per call: tier 0's `hi`, the flush
+    row count and tier 0's fill cursor before the step (device handles,
+    read after the run), the prefix and ring sizes, the tier flushes and
+    the segreduce launches the call made. At each `hi` in profile_his
+    the call runs under torch.profiler and its device copies are counted
+    by direction; at each `hi` in capture_his tier 0's inputs are cloned
+    for the timings of `cascade_timings`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepflow_tpu_torch.aggregator import cascade
+    from deepflow_tpu_torch.ops import segreduce
+
+    casc = wm.cascade
+    real = casc.on_advance
+    out = []
+
+    def on_advance(packed, total, hi):
+        rows = packed.shape[0]
+        rec = {"hi": int(hi), "total": total, "fill": casc.fills[0],
+               "prefix": cascade.tier_prefix(rows), "ring": cascade.tier_ring_rows(rows)}
+        if hi in capture_his:
+            rec["inputs"] = dict(
+                tier=_clone(casc.tiers[0]), acc=_clone(casc.accs[0]),
+                fill=casc.fills[0].clone(), lanes=casc.lanes_dev.clone(), packed=packed,
+                total=total, watermark=casc.watermarks[0])
+        before = sum(segreduce.LAUNCHES.values())
+        if hi in profile_his:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                flushes = real(packed, total, hi)
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            rec["copies"] = {d: sum(e.count for e in events if f"Memcpy {d}" in e.key)
+                             for d in ("DtoH", "HtoD", "DtoD")}
+            rec["device_ms"] = sum(_dev_us(e) for e in events
+                                   if not e.key.startswith("Memcpy")) / 1e3
+            rec["launches"] = sum(e.count for e in events if not e.key.startswith("Memcpy"))
+        else:
+            flushes = real(packed, total, hi)
+        rec["segreduce"] = sum(segreduce.LAUNCHES.values()) - before
+        rec["flushes"] = [(f.tier, f.lo, f.hi, f.total) for f in flushes]
+        out.append(rec)
+        return flushes
+
+    casc.on_advance = on_advance
+    return out
+
+
+def advance_branches(advances: list) -> list:
+    """Tier 0's tier-step branch at each recorded advance, from the flush
+    row count and the fill cursor it met (read after the run)."""
+    out = []
+    for r in advances:
+        total, fill = int(r["total"]), int(r["fill"])
+        out.append("direct" if total > r["prefix"]
+                   else "fold_append" if fill + r["prefix"] > r["ring"] else "append")
+    return out
+
+
+def check_cascade_run(run: dict, seconds: list[int]) -> dict:
+    """Phase 3f's checks of the cascade main path; returns its summary."""
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+
+    check_pipeline_run(run)
+    docs, tiers = run["docs"], run["tiers"]
+    check(len(docs) == len(seconds), f"{len(docs)} one-second windows from {len(seconds)}")
+    minutes = [db for iv, db in tiers if iv == 60]
+    hours = [db for iv, db in tiers if iv == 3600]
+    check(len(minutes) == 2 and len(hours) == 1 and len(tiers) == 3,
+          f"tier windows {[(iv, int(db.timestamp[0])) for iv, db in tiers]}")
+    key_cols = [i for i, f in enumerate(TAG_SCHEMA.fields) if f.key]
+    is_sum = np.asarray(FLOW_METER.sum_mask, bool)
+    worst = 0.0
+    for db in minutes:
+        m = int(db.timestamp[0]) // 60
+        kids = [d for d in docs if int(d.timestamp[0]) // 60 == m]
+        keys = np.unique(np.concatenate([d.tags[:, key_cols] for d in kids]), axis=0)
+        # the numpy f32 fold of the children in window order (one row per
+        # key per second, so each second adds by fancy indexing)
+        sums = np.zeros((len(keys), FLOW_METER.num_fields), np.float32)
+        maxs = np.full((len(keys), FLOW_METER.num_fields), -np.inf, np.float32)
+        for d in kids:
+            ix = _rows_of(keys, d.tags[:, key_cols])
+            sums[ix] += d.meters
+            maxs[ix] = np.maximum(maxs[ix], d.meters)
+        mk = db.tags[:, key_cols]
+        check(len(mk) == len(keys), f"minute {m}: {len(mk)} keys, its seconds {len(keys)}")
+        ix = _rows_of(keys, mk)
+        got = db.meters
+        check(np.array_equal(got[:, ~is_sum], maxs[ix][:, ~is_sum]),
+              f"minute {m}: MAX meters differ from the fold of its seconds")
+        err = np.abs(got[:, is_sum] - sums[ix][:, is_sum])
+        check(bool((err <= SUM_RTOL * np.abs(sums[ix][:, is_sum])).all()),
+              f"minute {m}: SUM meters off by more than rtol {SUM_RTOL}")
+        worst = max(worst, float(err.max()))
+    pkt = FLOW_METER.index("packet_tx")
+    total = lambda dbs: sum(float(d.meters[:, pkt].astype(np.float64).sum()) for d in dbs)  # noqa: E731
+    check(total(hours) == total(minutes) > 0, "the hour's packets differ from its minutes'")
+    lanes = run["cascade_lanes"]
+    rows = run["counters"]["flushed_doc"] + sum(db.size for db in minutes)
+    check(lanes == [rows, 0], f"cascade lanes {lanes}, want [{rows}, 0]")
+    check(run["counters"]["tier_windows_dropped"] == 0
+          and run["tier_sketch_blocks_dropped"] == 0, "tier windows or blocks dropped")
+    # sketches: each minute block is the merge of its seconds' blocks
+    kids_of = {}
+    for b in run["sketches"]:
+        kids_of.setdefault(b.window // 60, []).append(b)
+    minute_blocks = [b for b in run["tier_sketches"] if b.window in kids_of]
+    check(len(minute_blocks) == 2, "minute sketch blocks missing")
+    distinct_err = []
+    for blk in minute_blocks:
+        kids = sorted(kids_of[blk.window], key=lambda b: b.window)
+        want = dataclasses.replace(kids[0], window=blk.window)
+        for k in kids[1:]:
+            want = want.merge(dataclasses.replace(k, window=blk.window))
+        check(want.n_updates == blk.n_updates, "minute block n_updates")
+        for lane in ("hll", "cms", "hist", "tk_votes", "tk_hi", "tk_lo", "tk_ida", "tk_idb"):
+            check(np.array_equal(getattr(want, lane), getattr(blk, lane)),
+                  f"minute block lane {lane} differs from the merge of its seconds")
+        exact = run["minute_clients"][blk.window]
+        distinct_err.append((blk.distinct() - exact) / exact)
+        check(abs(distinct_err[-1]) <= DISTINCT_RTOL,
+              f"minute distinct() {blk.distinct():.1f} vs exact {exact}")
+    check(max(run["fetches"]) <= 3, f"host fetches per ingest {run['fetches']}")
+    advances = run["advances"]
+    check(sum(r["segreduce"] for r in advances) > 0, "no segreduce launch in a tier step")
+    profiled = [r for r in advances if "copies" in r]
+    check(profiled and all(r["launches"] > 0 for r in profiled),
+          "the profiler saw no kernel of a traced on_advance")
+    check(all(r["copies"]["DtoH"] == 0 for r in profiled),
+          f"device→host copies inside on_advance: {[r['copies'] for r in profiled]}")
+    return {"minute_sum_max_abs_err": worst, "distinct_rel_err": distinct_err,
+            "minute_rows": [db.size for db in minutes], "hour_rows": hours[0].size,
+            "cascade_lanes": lanes, "branches": advance_branches(advances),
+            "tier0_totals": [int(r["total"]) for r in advances],
+            "profiled_advances": [{k: r[k] for k in ("hi", "copies", "device_ms", "launches")}
+                                  for r in profiled]}
+
+
+def _rows_of(keys: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """The index in `keys` (np.unique's lexicographically sorted rows) of
+    each row of `rows`; fails if one is absent."""
+    kv = np.ascontiguousarray(keys).view([("", keys.dtype)] * keys.shape[1]).ravel()
+    rv = np.ascontiguousarray(rows).view([("", rows.dtype)] * rows.shape[1]).ravel()
+    ix = np.searchsorted(kv, rv)
+    check(bool((ix < len(kv)).all()) and bool((kv[np.minimum(ix, len(kv) - 1)] == rv).all()),
+          "a minute key is not among its seconds' keys")
+    return ix
+
+
+def cascade_timings(run: dict, step_hi: int, close_hi: int) -> dict:
+    """Device ms and launches of one tier step at a 1-window advance (the
+    append branch replays idempotently: the same ring rows are written
+    again) and of one tier close (ring fold + compacting flush, each
+    call on a fresh replay of that advance's tier step), from tier 0's
+    inputs captured at those advances."""
+    from deepflow_tpu_torch.aggregator import cascade
+    from deepflow_tpu_torch.aggregator.stash import _flush_range_impl
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+
+    cap = {r["hi"]: r["inputs"] for r in run["advances"] if "inputs" in r}
+    ratio = CASCADE_INTERVALS[0]
+
+    def step(x, acc):
+        return cascade.tier_step(x["tier"], acc, x["fill"], x["lanes"], x["packed"],
+                                 x["total"], x["hi"], ratio=ratio, meter_schema=FLOW_METER,
+                                 num_tags=TAG_SCHEMA.num_fields,
+                                 prefix=cascade.tier_prefix(x["packed"].shape[0]))
+
+    s = dict(cap[step_hi], hi=step_hi)
+    s_acc = _clone(s["acc"])
+    check(int(s["total"]) > 0 and int(s["fill"]) + cascade.tier_prefix(s["packed"].shape[0])
+          <= s_acc.capacity, "the timed tier step is no append of rows")
+    step_dev, step_launches = device_time(lambda: step(s, s_acc), None)
+    step_ms = time_ms(lambda: step(s, s_acc))
+
+    c = dict(cap[close_hi], hi=close_hi)
+    lo_t, hi_t = c["watermark"], close_hi // ratio
+
+    def replay():
+        tier, acc, _, lanes = step(dict(c, tier=_clone(c["tier"])), _clone(c["acc"]))
+        return tier, acc, lanes
+
+    def close(tier, acc, lanes):
+        tier, acc, lanes = cascade.tier_ring_fold(tier, acc, lanes, FLOW_METER)
+        return _flush_range_impl(tier, lo_t, hi_t, compact=True)
+
+    close_dev, close_launches = device_time_each(close, replay)
+    return {"tier_step": {"device_ms": step_dev, "launches": step_launches, "ms": step_ms,
+                          "rows": int(s["total"]), "merge_rows": s["tier"].capacity
+                          + s_acc.capacity + s["packed"].shape[0]},
+            "tier_close": {"device_ms": close_dev, "launches": close_launches,
+                           "ring_rows": int((c["acc"].slot != 0xFFFFFFFF).sum())}}
+
+
+def device_time_each(fn, setup, reps: int = 5) -> tuple[float, float]:
+    """Device time and launches per call of fn(*setup()), each call
+    profiled alone after its own setup (for a call that consumes its
+    inputs); the setup is not profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*setup())
+    dev_ms = launches = 0.0
+    for _ in range(reps):
+        args = setup()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms += sum(_dev_us(e) for e in events) / 1e3
+        launches += sum(e.count for e in events)
+    check(dev_ms > 0, "the profiler saw no device time for the tier close")
+    return dev_ms / reps, launches / reps
 
 
 def check_pipeline_run(run: dict) -> None:
@@ -674,10 +1023,22 @@ def check_card_vs_cpu(card: dict, host: dict) -> None:
         check(np.array_equal(a.meters.view(np.uint32), b.meters.view(np.uint32)),
               "flushed meters differ card vs CPU")
     for key in ("doc_in", "flushed_doc", "drop_before_window", "prereduce_dropped",
-                "drop_overflow"):
+                "drop_overflow", "cascade_rows", "cascade_shed", "tier_windows_held",
+                "tier_windows_dropped"):
         check(card["counters"][key] == host["counters"][key],
               f"counter {key} differs card vs CPU")
+    # present only when the cascade is on
+    for key in ("cascade_tier_windows", "cascade_pending_blocks"):
+        check(card["counters"].get(key) == host["counters"].get(key),
+              f"counter {key} differs card vs CPU")
     check(card["blocks"] == host["blocks"], "counter blocks differ card vs CPU")
+    check(len(card["tiers"]) == len(host["tiers"]), "card and CPU closed different tier windows")
+    for (iv_a, a), (iv_b, b) in zip(card["tiers"], host["tiers"]):
+        check(iv_a == iv_b and np.array_equal(a.timestamp, b.timestamp)
+              and np.array_equal(a.tags, b.tags)
+              and np.array_equal(a.meters.view(np.uint32), b.meters.view(np.uint32)),
+              "tier windows differ card vs CPU")
+    check(card["cascade_lanes"] == host["cascade_lanes"], "cascade lanes differ card vs CPU")
 
 
 def check_sketch_blocks_card_vs_cpu(card: list, host: list, coarsen: int = 1) -> int:
@@ -795,21 +1156,26 @@ def main() -> int:
         print(json.dumps({"gpu": gpu, "against": sys.argv[2]}))
         return 0
     t0 = time.perf_counter()
+
+    def emit(obj: dict) -> None:
+        """One phase's JSON line, with the seconds since the build began."""
+        print(json.dumps({**obj, "t_s": round(time.perf_counter() - t0, 1)}), flush=True)
+
     build.build(build.all_sources())
     build_s = time.perf_counter() - t0
-    print(json.dumps({"phase": "device", "nvidia_smi": gpu, "torch": torch.__version__,
+    emit({"phase": "device", "nvidia_smi": gpu, "torch": torch.__version__,
                       "cuda": torch.version.cuda, "build_s": round(build_s, 3),
-                      "build_seconds": build.build_seconds}), flush=True)
+                      "build_seconds": build.build_seconds})
     sk_cfg = sketch_config()
 
     # 2. kernel parity at the main-path shapes
     ops = kernel_operands(dev)
     results = {k: {shape: kernel_parity(k, o) for shape, o in ops.items()}
                for k in KERNELS}
-    print(json.dumps({"phase": "parity", "results": results}), flush=True)
+    emit({"phase": "parity", "results": results})
     # 2b. the fused sketch update at the main-path shape
     sketch_res = sketch_kernel_parity(dev)
-    print(json.dumps({"phase": "sketch_parity", "result": sketch_res}), flush=True)
+    emit({"phase": "sketch_parity", "result": sketch_res})
 
     # 3. main path, fused gather (the default)
     os.environ["DEEPFLOW_FUSED_GATHER"] = "1"
@@ -823,10 +1189,10 @@ def main() -> int:
     check(main_gather["segreduce_gather"] > 0 and main_gather["segreduce_sorted"] == 0
           and main_gather["sketch_fused"] == 0,
           f"fused-gather main path launches {main_gather}")
-    print(json.dumps({"phase": "profile", "cycle": prof}), flush=True)
-    print(json.dumps({"phase": "main_path", "fused_gather": True,
+    emit({"phase": "profile", "cycle": prof})
+    emit({"phase": "main_path", "fused_gather": True,
                       "launches": main_gather, "windows": len(run["docs"]),
-                      "counters": run["counters"]}), flush=True)
+                      "counters": run["counters"]})
 
     # 3b. main path through the pre-gathered launcher
     os.environ["DEEPFLOW_FUSED_GATHER"] = "0"
@@ -842,7 +1208,9 @@ def main() -> int:
     rate_sketch, per_cycle_sketch, prof_sketch, _ = bench_cycle(dev, CYCLES,
                                                                 with_profile=True,
                                                                 sketch=sk_cfg)
-    sk_run = pipeline_stream(dev, BATCH, list(range(6)), sketch=sk_cfg)
+    # the ingest of T0+4 (a 1-window advance) is profiled: the cascade
+    # run's T0+41 ingest is the same work plus its tier step
+    sk_run = pipeline_stream(dev, BATCH, list(range(6)), sketch=sk_cfg, profile_dt=4)
     main_sketch = all_launches()
     check(per_cycle_sketch == {"segreduce": 3, "sketch_fused": 4},
           f"sketch cycle launches {per_cycle_sketch}, want 3 segreduce + 4 sketch_fused")
@@ -864,15 +1232,16 @@ def main() -> int:
         distinct_err.append((b.distinct() - exact) / exact)
         check(abs(distinct_err[-1]) <= DISTINCT_RTOL,
               f"distinct() {b.distinct():.1f} vs exact {exact} for window {b.window}")
-    print(json.dumps({"phase": "profile_sketch", "cycle": prof_sketch}), flush=True)
-    print(json.dumps({"phase": "main_path_sketch", "launches": main_sketch,
+    emit({"phase": "profile_sketch", "cycle": prof_sketch})
+    emit({"phase": "main_path_sketch", "launches": main_sketch,
+          "ingest_t0_plus_4": sk_run["ingest_profile"],
                       "launches_per_cycle": per_cycle_sketch,
                       "fetches_per_ingest": sk_run["fetches"],
                       "distinct_rel_err": distinct_err,
                       "exact_clients": list(sk_run["clients"].values()),
                       "top3_first_window": blocks[0].topk(3),
                       "p50_rtt_first_window": blocks[0].quantile(0.5),
-                      "counters": counters}), flush=True)
+                      "counters": counters})
 
     # 3d. the merge fold: the bench.py cycle through fold_mode="merge",
     # whose stash must equal the full-fold cycle's row for row
@@ -885,10 +1254,9 @@ def main() -> int:
     for f in dataclasses.fields(merge_state):
         check(torch.equal(getattr(merge_state, f.name), getattr(full_state, f.name)),
               f"merge-fold stash lane {f.name} differs from the full fold's")
-    print(json.dumps({"phase": "merge_cycle", "launches": main_merge,
+    emit({"phase": "merge_cycle", "launches": main_merge,
                       "launches_per_cycle": per_cycle_merge, "cycle": prof_merge,
-                      "full_fold": prof["fold"], "stash_equal_to_full_fold": True}),
-          flush=True)
+                      "full_fold": prof["fold"], "stash_equal_to_full_fold": True})
 
     # 3e. the pool + merge main path: the bench.py cycle and L4Pipeline
     # with pooled sketch memory and the merge fold
@@ -926,28 +1294,52 @@ def main() -> int:
           and sum(b.n_updates for b in pool_run["sketches"]) + spilled
           == p_counters["sketch_rows"], "pooled blocks do not account for every row")
     resident = {"slab": plane_bytes(sk_cfg, dev), "pool": plane_bytes(pool_cfg, dev)}
-    print(json.dumps({"phase": "profile_pool_merge", "cycle": prof_pool}), flush=True)
-    print(json.dumps({"phase": "main_path_pool_merge", "launches": main_pool,
+    emit({"phase": "profile_pool_merge", "cycle": prof_pool})
+    emit({"phase": "main_path_pool_merge", "launches": main_pool,
                       "launches_per_cycle": per_cycle_pool,
                       "fetches_per_ingest": pool_run["fetches"],
                       "distinct_rel_err": pool_err, "spilled_rows": spilled,
                       "blocks": len(pool_run["sketches"]), "resident_bytes": resident,
-                      "counters": p_counters}), flush=True)
+                      "counters": p_counters})
+
+    # 3f. the cascade main path: L4Pipeline with the slab sketch plane and
+    # a minute + hour cascade over T0+34 … T0+45 and a drain. The advance
+    # at T0+38 (hi = T0+36) appends one window's rows to the minute
+    # tier; the one at T0+42 (hi = T0+40) closes the minute. Both run
+    # under the profiler, and tier 0's inputs are kept for the timings;
+    # the whole ingest of T0+41 (a 1-window advance) is profiled too
+    from deepflow_tpu_torch.aggregator.cascade import CascadeConfig
+
+    step_hi, close_hi = T0 + 36, T0 + 40
+    reset_all_launch_counts()
+    casc_run = pipeline_stream(
+        dev, BATCH, CASCADE_SECONDS, sketch=sk_cfg, seed=0,
+        cascade=CascadeConfig(intervals=CASCADE_INTERVALS, capacity=STASH_CAPACITY),
+        profile_his=(step_hi, close_hi), capture_his=(step_hi, close_hi), profile_dt=41)
+    main_cascade = all_launches()
+    check(main_cascade["segreduce_gather"] > 0 and main_cascade["sketch_fused"] > 0,
+          f"cascade main path launches {main_cascade}")
+    casc_summary = check_cascade_run(casc_run, CASCADE_SECONDS)
+    casc_timings = cascade_timings(casc_run, step_hi, close_hi)
+    emit({"phase": "main_path_cascade", "launches": main_cascade,
+          "stream_s": casc_run["seconds"], "ingest_t0_plus_41": casc_run["ingest_profile"],
+                      "fetches_per_ingest": casc_run["fetches"], **casc_summary,
+                      **casc_timings, "counters": casc_run["counters"]})
+    del casc_run
 
     # 4. card vs CPU on the same stream, exact; 4b with the sketch plane
     seconds = [0, 0, 1, 2, 1, 3, 4, 6, 3, 5, 8]  # the second 3 is late
     card = pipeline_stream(dev, SMALL_BATCH, seconds)
     host = pipeline_stream("cpu", SMALL_BATCH, seconds)
     check_card_vs_cpu(card, host)
-    print(json.dumps({"phase": "card_vs_cpu", "windows": len(card["docs"]),
-                      "docs": card["counters"]["flushed_doc"]}), flush=True)
+    emit({"phase": "card_vs_cpu", "windows": len(card["docs"]),
+                      "docs": card["counters"]["flushed_doc"]})
     card = pipeline_stream(dev, SMALL_BATCH, seconds, sketch=sk_cfg)
     host = pipeline_stream("cpu", SMALL_BATCH, seconds, sketch=sk_cfg)
     check_card_vs_cpu(card, host)
     moved = check_sketch_blocks_card_vs_cpu(card["sketches"], host["sketches"])
-    print(json.dumps({"phase": "card_vs_cpu_sketch", "windows": len(card["docs"]),
-                      "blocks": len(card["sketches"]), "hist_counts_moved": moved}),
-          flush=True)
+    emit({"phase": "card_vs_cpu_sketch", "windows": len(card["docs"]),
+                      "blocks": len(card["sketches"]), "hist_counts_moved": moved})
     # 4c. pooled sketch memory and the merge fold, card vs CPU
     card = pipeline_stream(dev, SMALL_BATCH, seconds, sketch=pool_cfg, fold_mode="merge")
     host = pipeline_stream("cpu", SMALL_BATCH, seconds, sketch=pool_cfg, fold_mode="merge")
@@ -955,31 +1347,68 @@ def main() -> int:
     moved = check_sketch_blocks_card_vs_cpu(card["sketches"], host["sketches"],
                                             coarsen=pool_cfg.pool.hist_factor)
     check(card["counters"]["sketch_promotions"] >= 1, "4c: no promotion at 2^14 rows")
-    print(json.dumps({"phase": "card_vs_cpu_pool_merge", "windows": len(card["docs"]),
+    emit({"phase": "card_vs_cpu_pool_merge", "windows": len(card["docs"]),
                       "blocks": len(card["sketches"]), "hist_counts_moved": moved,
                       "promotions": card["counters"]["sketch_promotions"],
-                      "pool_spill": card["counters"]["sketch_pool_spill"]}), flush=True)
+                      "pool_spill": card["counters"]["sketch_pool_spill"]})
+    # 4d. the cascade, card vs CPU: 2^16-row window and tier stashes, ~12k
+    # docs a second. Seconds T0+34 … T0+45 cross the minute boundary with
+    # one-window advances (the fifth finds the tier ring full:
+    # fold+append); the jump to T0+140 flushes the three open windows,
+    # more rows than the 2^15-row prefix (direct fold). Once with the full
+    # fold and the slab plane, once with the merge fold and pooled memory
+    small_casc = CascadeConfig(intervals=CASCADE_INTERVALS, capacity=TIER_SMALL)
+    for label, cfg, mode, coarsen in (("slab_full", sk_cfg, "full", 1),
+                                      ("pool_merge", pool_cfg, "merge",
+                                       pool_cfg.pool.hist_factor)):
+        kw = dict(sketch=cfg, fold_mode=mode, cascade=small_casc, capacity=TIER_SMALL,
+                  tuples=TIER_SMALL_TUPLES)
+        card = pipeline_stream(dev, SMALL_BATCH, CASCADE_SECONDS + [140], **kw)
+        host = pipeline_stream("cpu", SMALL_BATCH, CASCADE_SECONDS + [140], **kw)
+        check_card_vs_cpu(card, host)
+        moved = check_sketch_blocks_card_vs_cpu(card["sketches"], host["sketches"],
+                                                coarsen=coarsen)
+        moved += check_sketch_blocks_card_vs_cpu(card["tier_sketches"],
+                                                 host["tier_sketches"], coarsen=coarsen)
+        branches = advance_branches(card["advances"])
+        check(branches == advance_branches(host["advances"]), "4d: tier-step branches differ")
+        check("fold_append" in branches and "direct" in branches,
+              f"4d: the stream took the branches {branches}")
+        check(card["cascade_lanes"][0] > 0 and card["cascade_lanes"][1] == 0,
+              f"4d: cascade lanes {card['cascade_lanes']}")
+        emit({"phase": f"card_vs_cpu_cascade_{label}",
+                          "windows": len(card["docs"]), "tier_windows": len(card["tiers"]),
+                          "tier_blocks": len(card["tier_sketches"]),
+                          "hist_counts_moved": moved, "branches": branches,
+                          "tier0_totals": [int(r["total"]) for r in card["advances"]],
+                          "prefix": card["advances"][0]["prefix"],
+                          "card_s": card["seconds"], "cpu_s": host["seconds"],
+                          "cascade_lanes": card["cascade_lanes"]})
 
     # 5. result lines
     kernels = []
     launches = {"segreduce_gather": (main_gather, per_cycle_gather),
                 "segreduce_sorted": (main_sorted, per_cycle_sorted)}
     for k, replaces in KERNELS.items():
-        pre, fold, merge = (results[k][shape] for shape in ("prereduce", "fold", "merge_fold"))
+        shapes = results[k]
+        pre = shapes["prereduce"]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCE, "replaces": replaces,
             "launches": launches[k][0][k],
             "launches_per_cycle": launches[k][1]["segreduce"],
-            "parity": {"ok": pre["parity_ok"] and fold["parity_ok"] and merge["parity_ok"],
+            "parity": {"ok": all(r["parity_ok"] for r in shapes.values()),
                        "sum_rtol": SUM_RTOL, "max": "exact",
                        "against": "sorted_segment_sum_max_plain"},
-            "max_abs_err": max(pre["max_abs_err"], fold["max_abs_err"], merge["max_abs_err"]),
+            "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             **{f: pre[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library")},
-            "shape": "prereduce", "fold": fold, "merge_fold": merge,
-            # the merge-fold cycle and the pool + merge main path, each
-            # with its counts zeroed before it and read after it
+            "shape": "prereduce", "fold": shapes["fold"], "merge_fold": shapes["merge_fold"],
+            "tier_fold": shapes["tier_fold"],
+            # the merge-fold cycle, the pool + merge main path and the
+            # cascade main path, each with its counts zeroed before it and
+            # read after it
             "launches_merge_cycles": main_merge[k], "launches_pool_merge": main_pool[k],
+            "launches_cascade": main_cascade[k],
         })
     sk_name, sk_replaces, sk_source = SKETCH_KERNEL
     kernels.append({
@@ -987,6 +1416,7 @@ def main() -> int:
         "launches": main_sketch[sk_name],
         "launches_per_cycle": per_cycle_sketch[sk_name],
         "launches_pool_merge": main_pool[sk_name],
+        "launches_cascade": main_cascade[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",

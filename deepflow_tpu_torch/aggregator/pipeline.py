@@ -1,5 +1,5 @@
 """Flow-metrics rollup pipelines, L4 network + L7 application (port of
-deepflow_tpu/aggregator/pipeline.py, cascade-free).
+deepflow_tpu/aggregator/pipeline.py).
 
 Per batch: optional batch-local pre-reduce → [sketch plane] → fanout →
 packed-word doc fingerprint → late gate + counter block → accumulator
@@ -17,8 +17,15 @@ counts once; closed blocks collect in `closed_sketches` for
 counter block leaves the pool lanes 18–20 at 0, the port fills them
 from the plane, as both packages' WindowManager.ingest does.
 
-Not ported yet: countable registration, profiling census, lineage, the
-cascade (DualGranularityPipeline), live snapshots.
+With the rollup cascade (`WindowConfig(cascade=CascadeConfig(...))`)
+closed 1 m / 1 h tier windows come out of `pop_tier_docbatches()`;
+`DualGranularityPipeline` serves the 1 s and 1 m series from one
+pipeline that way, and `DoubleIngestPipeline` — two pipelines, every
+batch ingested twice — is kept as its conformance oracle.
+
+Not ported yet: countable registration, profiling census, lineage,
+telemetry, live snapshots, and the datasource registration of cascade
+tiers (server/datasource.py).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from ..ops.u32 import from_numpy_u32
 from .fanout import FANOUT_LANES, FanoutConfig, fanout_l4, fanout_l7
 from ..ops.segment import SENTINEL_SLOT
 from .stash import _append_impl, _fold_impl, _merge_fold_impl, check_fold_mode, sum_max_cols
+from .cascade import CascadeConfig
 from .sketchplane import SketchConfig, SketchState, hold_blocks, sketch_plane_step
 from .window import (
     FlushedWindow,
@@ -242,12 +250,16 @@ class RollupPipeline:
         self.closed_sketches: list = []
         self.max_held_sketches = 512
         self.sketch_blocks_dropped = 0
+        # the cascade's merged tier sketch blocks, held the same way
+        self.closed_tier_sketches: list = []
+        self.tier_sketch_blocks_dropped = 0
 
     def _step(self, acc, offset: int, start_window: int, stash_valid, stash_evict,
-              feeder_shed: int, fold_rows, sk, tags: dict, meters, valid):
+              feeder_shed: int, fold_rows, casc_lanes, sk, tags: dict, meters, valid):
         """One batch: [pre-reduce →] [sketch plane →] fanout →
-        fingerprint → counter block → ring append. Returns (acc, counter
-        block), plus the sketch plane when it is on."""
+        fingerprint → counter block (with the cascade's [rows, shed]
+        lanes) → ring append. Returns (acc, counter block), plus the
+        sketch plane when it is on."""
         window_cfg = self.config.window
         interval = window_cfg.interval
         aux = None
@@ -272,6 +284,7 @@ class RollupPipeline:
             excess_hits=((excess != 0) & doc_valid).sum(),
             stash_valid=stash_valid, stash_evictions=stash_evict,
             ring_fill=offset, feeder_shed=feeder_shed, fold_rows=fold_rows,
+            cascade_rows=casc_lanes[0], cascade_shed=casc_lanes[1],
             **sketch_counter_lanes(sk),
         )
         acc = _append_impl(acc, window, hi, lo, doc_tags, doc_meters, gated, offset)
@@ -321,8 +334,8 @@ class RollupPipeline:
             st = self.wm.state
             return self._step(acc, offset, start_window, st.valid,
                               st.dropped_overflow, feeder_shed,
-                              self.wm._fold_rows_dev, self.wm.sk, staged.tags,
-                              staged.meters, staged.valid)
+                              self.wm._fold_rows_dev, self.wm._cascade_lanes(),
+                              self.wm.sk, staged.tags, staged.meters, staged.valid)
 
         return self._convert_flushed(
             self.wm.ingest_step(dispatch, rows, ring_rows=max_rows)
@@ -345,6 +358,22 @@ class RollupPipeline:
         out, self.closed_sketches = self.closed_sketches, []
         return out
 
+    def pop_tier_windows(self) -> list[FlushedWindow]:
+        """Drain the cascade's closed tier windows — FlushedWindows with
+        tier ≥ 1 and the tier interval set."""
+        return self.wm.pop_tier_windows()
+
+    def pop_tier_docbatches(self) -> list[tuple[int, DocBatch]]:
+        """Closed cascade tier windows as (tier_interval_s, DocBatch)
+        pairs, oldest first. Merged tier sketch blocks are captured into
+        `closed_tier_sketches` (a sketch-only tier window contributes a
+        block but no DocBatch)."""
+        windows = self.wm.pop_tier_windows()
+        blocks = [f.sketches for f in windows if f.sketches is not None]
+        self.tier_sketch_blocks_dropped += hold_blocks(self.closed_tier_sketches, blocks,
+                                                       self.max_held_sketches)
+        return [(f.interval, self._to_docbatch(f)) for f in windows if f.count]
+
     def _to_docbatch(self, f: FlushedWindow) -> DocBatch:
         return DocBatch(
             tags=f.tags,
@@ -361,6 +390,8 @@ class RollupPipeline:
         out = self.wm.get_counters()
         out["sketch_blocks_held"] = len(self.closed_sketches)
         out["sketch_blocks_dropped"] = self.sketch_blocks_dropped
+        out["tier_sketch_blocks_held"] = len(self.closed_tier_sketches)
+        out["tier_sketch_blocks_dropped"] = self.tier_sketch_blocks_dropped
         return out
 
     @property
@@ -385,3 +416,113 @@ class L7Pipeline(RollupPipeline):
 
     fanout_fn = staticmethod(fanout_l7)
     meter_schema = APP_METER
+
+
+class DualGranularityPipeline:
+    """SECOND + MINUTE rollups from one flow stream, one append step per
+    batch.
+
+    The reference server runs one generator per granularity over the
+    same flow queue, and the 1 m docs feed the downsampler chain
+    (1m→1h→1d). Here the minute series is the rollup cascade's 1 m tier —
+    a device-side fold of closed 1 s windows — so dual-granularity
+    traffic costs one ingest per batch plus a tier step per advance.
+
+    ingest() returns (flags, DocBatch) pairs: PER_SECOND_METRICS for 1 s
+    windows, NONE for 1 m. Minute docs for minute M surface once every
+    1 s window of M has closed. Minute ADMISSION equals the 1 s delay: a
+    row too late for its second is too late for its minute. Tiers coarser than a minute accumulate in
+    `coarse_tiers` as (interval, DocBatch), not in the (flags, DocBatch)
+    stream, whose flags tell only second from minute."""
+
+    def __init__(self, config: PipelineConfig = PipelineConfig(), *, app: bool = False,
+                 cascade: CascadeConfig | None = None, device=None):
+        cls = L7Pipeline if app else L4Pipeline
+        if config.window.cascade is None:
+            # the minute tier keeps the 1 s stash's capacity
+            casc = cascade or CascadeConfig(intervals=(60,), capacity=config.window.capacity)
+            config = dataclasses.replace(
+                config, window=dataclasses.replace(config.window, cascade=casc))
+        elif cascade is not None and cascade != config.window.cascade:
+            raise ValueError(
+                f"conflicting cascade configs: the window config carries "
+                f"{config.window.cascade} but cascade={cascade} was also "
+                "passed — silently preferring one would drop tiers"
+            )
+        if 60 not in config.window.cascade.intervals:
+            raise ValueError(
+                "DualGranularityPipeline needs a 1m cascade tier (its contract IS the "
+                f"minute series); got intervals={config.window.cascade.intervals}"
+            )
+        self.pipe = cls(config, device=device)
+        self.coarse_tiers: list[tuple[int, DocBatch]] = []
+
+    @property
+    def second(self) -> RollupPipeline:
+        """Compat alias: consumers address the 1 s pipeline as `.second`."""
+        return self.pipe
+
+    def _tier_docs(self) -> list[tuple[DocumentFlag, DocBatch]]:
+        out, coarse = [], []
+        for interval, db in self.pipe.pop_tier_docbatches():
+            if interval == 60:
+                out.append((DocumentFlag.NONE, db))
+            else:
+                coarse.append((interval, db))
+        # bounded drop-oldest, like every other held buffer
+        hold_blocks(self.coarse_tiers, coarse, 512)
+        return out
+
+    def ingest(self, batch) -> list[tuple[DocumentFlag, DocBatch]]:
+        out = [(self.pipe.flags, db) for db in self.pipe.ingest(batch)]
+        return out + self._tier_docs()
+
+    def drain(self) -> list[tuple[DocumentFlag, DocBatch]]:
+        out = [(self.pipe.flags, db) for db in self.pipe.drain()]
+        return out + self._tier_docs()
+
+    @property
+    def counters(self) -> dict:
+        c = self.pipe.counters
+        # the "minute" face: the cascade's lanes inside the one pipeline's
+        # counters
+        return {
+            "second": c,
+            "minute": {
+                "cascade_rows": c.get("cascade_rows", 0),
+                "cascade_shed": c.get("cascade_shed", 0),
+                "tier_windows": c.get("cascade_tier_windows", 0),
+            },
+        }
+
+
+class DoubleIngestPipeline:
+    """Dual granularity the old way: a full second ingest into a parallel
+    minute pipeline. Kept only as the conformance oracle of
+    `DualGranularityPipeline`, which gives the same (flags, DocBatch)
+    stream from one ingest per batch. Its minute pipeline admits rows
+    up to `MINUTE_DELAY` seconds late, the reference's default."""
+
+    MINUTE_DELAY = 10
+
+    def __init__(self, config: PipelineConfig = PipelineConfig(), *, app: bool = False,
+                 device=None):
+        cls = L7Pipeline if app else L4Pipeline
+        self.second = cls(config, device=device)
+        minute_window = dataclasses.replace(config.window, interval=60,
+                                            delay=self.MINUTE_DELAY, cascade=None)
+        self.minute = cls(dataclasses.replace(config, window=minute_window), device=device)
+
+    def ingest(self, batch) -> list[tuple[DocumentFlag, DocBatch]]:
+        out = [(self.second.flags, db) for db in self.second.ingest(batch)]
+        out += [(self.minute.flags, db) for db in self.minute.ingest(batch)]
+        return out
+
+    def drain(self) -> list[tuple[DocumentFlag, DocBatch]]:
+        out = [(self.second.flags, db) for db in self.second.drain()]
+        out += [(self.minute.flags, db) for db in self.minute.drain()]
+        return out
+
+    @property
+    def counters(self) -> dict:
+        return {"second": self.second.counters, "minute": self.minute.counters}

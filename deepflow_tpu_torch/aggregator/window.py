@@ -18,6 +18,12 @@ independent of batch size and of how many windows closed. Every
 device→host transfer goes through `host_fetch`, so a test can count
 them.
 
+With `WindowConfig(cascade=CascadeConfig(...))` each advance also folds
+the flush matrix into coarser tiers (aggregator/cascade.py: 1 m, 1 h …)
+on the device; a closing tier window's rows ride the same two transfers
+(one more scalar lane per tier flush, its rows appended to the row
+fetch), and closed tier windows collect for `pop_tier_windows()`.
+
 With `WindowConfig(sketch=SketchConfig(...))` the same step also folds
 the batch into the per-window sketch plane (aggregator/sketchplane.py,
 slab or pool mode): closed windows come out with
@@ -26,10 +32,9 @@ still comes out, sketch-only (count == 0). With fold_mode="merge" the
 folds rank-merge the sorted ring into the stash, and an advance folds
 only the closing span (aggregator/stash.py); the windows are the same.
 
-Not ported yet (WindowConfig raises NotImplementedError): the rollup
-cascade, the K-batch counter ring (stats_ring > 1) and async_drain;
-retry/chaos seams, lineage, spans, profiling registration and live
-snapshots are absent.
+Not ported yet (WindowConfig raises NotImplementedError): the K-batch
+counter ring (stats_ring > 1) and async_drain; retry/chaos seams,
+lineage, spans, profiling registration and live snapshots are absent.
 """
 
 from __future__ import annotations
@@ -43,11 +48,13 @@ from ..datamodel.schema import FLOW_METER, TAG_SCHEMA, MeterSchema, TagSchema
 from ..device import resolve_device
 from ..ops.hashing import fingerprint64_words
 from ..ops.u32 import MASK, U32_MAX, add, mul, shl, to_i32_bits
+from .cascade import CascadeConfig, TierCascade, TierFlush
 from .sketchplane import (
     SENTINEL_WIN,
     SketchConfig,
     SketchState,
     WindowSketchBlock,
+    hold_blocks,
     scalar_tensor,
     sketch_drain,
     sketch_init,
@@ -94,8 +101,8 @@ COUNTER_BLOCK_VERSION = 7
     CB_FOLD_ROWS,  # rows the last fold's keyed sort touched
     CB_SKETCH_ROWS,  # cumulative rows folded into the sketch plane
     CB_SKETCH_SHED,  # cumulative rows the sketch plane counted-shed
-    CB_CASCADE_ROWS,  # rollup cascade (not ported: 0)
-    CB_CASCADE_SHED,
+    CB_CASCADE_ROWS,  # cumulative rows the cascade's tier folds consumed
+    CB_CASCADE_SHED,  # cumulative tier-stash overflow sheds
     CB_SNAPSHOT_READS,  # live read plane (not ported: 0)
     CB_SNAPSHOT_BYTES,
     CB_SKETCH_POOL_SPILL,  # cumulative rows the full pool could not seat
@@ -135,11 +142,12 @@ def batch_counter_block(timestamp, valid, start_window: int, interval: int, *,
                         aux=None, excess_hits=None, stash_valid=None,
                         stash_evictions=None, ring_fill=None, feeder_shed=None,
                         fold_rows=None, sketch_rows=None, sketch_shed=None,
+                        cascade_rows=None, cascade_shed=None,
                         sketch_pool_spill=None, sketch_pool_occ=None,
                         sketch_promotions=None):
     """`batch_stats` widened into the v7 counter block (one int64 tensor
-    of CB_LEN u32 lanes). The cascade / snapshot lanes belong to planes
-    this package has not ported and stay 0."""
+    of CB_LEN u32 lanes). The snapshot lanes belong to the live read
+    plane, which this package has not ported: they stay 0."""
     gated, window, stats = batch_stats(timestamp, valid, start_window, interval, aux=aux)
     dev = timestamp.device
 
@@ -149,12 +157,13 @@ def batch_counter_block(timestamp, valid, start_window: int, interval: int, *,
     occ = lane(None) if stash_valid is None else stash_valid.sum()
     tail = torch.stack([lane(excess_hits), occ, lane(stash_evictions),
                         lane(ring_fill), lane(feeder_shed), lane(fold_rows),
-                        lane(sketch_rows), lane(sketch_shed)])
+                        lane(sketch_rows), lane(sketch_shed), lane(cascade_rows),
+                        lane(cascade_shed)])
     block = torch.cat([
         torch.full((1,), COUNTER_BLOCK_VERSION, dtype=torch.int64, device=dev),
         stats,
         tail & MASK,
-        torch.zeros((CB_SKETCH_POOL_SPILL - CB_CASCADE_ROWS,), dtype=torch.int64, device=dev),
+        torch.zeros((CB_SKETCH_POOL_SPILL - CB_SNAPSHOT_READS,), dtype=torch.int64, device=dev),
         torch.stack([lane(sketch_pool_spill), lane(sketch_pool_occ),
                      lane(sketch_promotions)]) & MASK,
     ])
@@ -174,14 +183,15 @@ def sketch_counter_lanes(sk: SketchState | None) -> dict:
 
 
 def _raw_append_step(acc, offset: int, start_window: int, stash_valid, stash_evict,
-                     feeder_shed: int, fold_rows, timestamp, key_hi, key_lo,
+                     feeder_shed: int, fold_rows, casc_lanes, timestamp, key_hi, key_lo,
                      tags, meters, valid, *, interval: int, sk: SketchState | None = None):
-    """One raw doc batch: late gate + counter block (with the lanes of
-    the sketch plane `sk`) + ring append."""
+    """One raw doc batch: late gate + counter block (with the cascade's
+    [rows, shed] lanes and those of the sketch plane `sk`) + ring append."""
     gated, window, block = batch_counter_block(
         timestamp, valid, start_window, interval,
         stash_valid=stash_valid, stash_evictions=stash_evict, ring_fill=offset,
-        feeder_shed=feeder_shed, fold_rows=fold_rows, **sketch_counter_lanes(sk),
+        feeder_shed=feeder_shed, fold_rows=fold_rows, cascade_rows=casc_lanes[0],
+        cascade_shed=casc_lanes[1], **sketch_counter_lanes(sk),
     )
     acc = _append_impl(acc, window, key_hi, key_lo, tags, meters, gated, offset)
     return acc, block
@@ -270,7 +280,7 @@ def sketch_span_bounds(start_window, ts, valid, *, interval: int, delay: int):
 
 
 def _raw_append_step_sk(acc, offset: int, start_window: int, stash_valid, stash_evict,
-                        feeder_shed: int, fold_rows, sk: SketchState, timestamp,
+                        feeder_shed: int, fold_rows, casc_lanes, sk: SketchState, timestamp,
                         key_hi, key_lo, tags, meters, valid, *, interval: int,
                         delay: int, ix: tuple, spec):
     """`_raw_append_step` with the sketch plane folded in: the caller's
@@ -285,7 +295,8 @@ def _raw_append_step_sk(acc, offset: int, start_window: int, stash_valid, stash_
                            base_w=base_w, close_w=close_w, **inp)
     acc, block = _raw_append_step(
         acc, offset, start_window, stash_valid, stash_evict, feeder_shed, fold_rows,
-        timestamp, key_hi, key_lo, tags, meters, valid, interval=interval, sk=sk,
+        casc_lanes, timestamp, key_hi, key_lo, tags, meters, valid, interval=interval,
+        sk=sk,
     )
     return acc, block, sk
 
@@ -304,20 +315,26 @@ class WindowConfig:
     # ring and rank-merges it into the stash, and a window advance folds
     # only the closing span (stash.py). Bit-equal flushed windows.
     fold_mode: str = "full"
+    # rollup cascade (aggregator/cascade.py): fold closed windows into
+    # coarser tiers (1 m, 1 h …) on the device; tier windows surface via
+    # WindowManager.pop_tier_windows(). None = off.
+    cascade: CascadeConfig | None = None
     # reference options this package has not ported yet: set, they raise
     async_drain: bool = False
     stats_ring: int = 1
-    cascade: object | None = None
 
     def __post_init__(self):
         check_fold_mode(self.fold_mode)
-        if self.sketch is not None and not isinstance(self.sketch, SketchConfig):
-            raise TypeError(
-                f"WindowConfig.sketch takes a deepflow_tpu_torch SketchConfig, got "
-                f"{type(self.sketch).__name__}"
-            )
+        for name, cls in (("sketch", SketchConfig), ("cascade", CascadeConfig)):
+            value = getattr(self, name)
+            if value is not None and not isinstance(value, cls):
+                raise TypeError(
+                    f"WindowConfig.{name} takes a deepflow_tpu_torch {cls.__name__}, got "
+                    f"{type(value).__name__}"
+                )
+        if self.cascade is not None:
+            self.cascade.validate_base(self.interval)
         unported = {
-            "cascade": self.cascade is not None,
             "stats_ring>1": self.stats_ring != 1,
             "async_drain": self.async_drain,
         }
@@ -351,6 +368,8 @@ class _FlushEntry:
     # ids ([Pw] u32 lane, SENTINEL_WIN where the slot did not close)
     wide_rows: torch.Tensor | None = None
     wide_wins: torch.Tensor | None = None
+    # the cascade's closed tier flushes at this advance
+    tiers: list[TierFlush] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -368,7 +387,10 @@ class FlushedWindow:
     # the window's sketch summary (sketch plane on); count == 0 with a
     # block attached means the exact stash shed every row of the window
     sketches: WindowSketchBlock | None = None
-    tier: int = 0  # rollup cascade tier (not ported: always 0)
+    # rollup-cascade provenance: 0 = the manager's own resolution; N ≥ 1 =
+    # the Nth cascade tier, with `interval` its seconds per window
+    # (window_idx and start_time are already in tier units)
+    tier: int = 0
     interval: int = 0
     partial: bool = False  # live snapshot view (not ported: always False)
 
@@ -425,6 +447,21 @@ class WindowManager:
         if config.sketch is not None:
             self._sketch_ix = sketch_tag_indices(tag_schema, meter_schema)
             self.sk = sketch_init(config.sketch, config.ring, device=self.device)
+        # rollup cascade: device tier stashes + host watermarks and pending
+        # sketch merges; the counter-block lane mirrors; closed tier
+        # windows held for pop_tier_windows (drop-oldest beyond the cap,
+        # counted)
+        self.cascade: TierCascade | None = None
+        self.cascade_rows = 0
+        self.cascade_shed = 0
+        self.tier_flushed: list[FlushedWindow] = []
+        self.max_held_tier_windows = 4096
+        self.tier_windows_dropped = 0
+        # cached zero [rows, shed] lane vector (cascade off)
+        self._zero_lanes = torch.zeros((2,), dtype=torch.int64, device=self.device)
+        if config.cascade is not None:
+            self.cascade = TierCascade(config.cascade, config.interval, tag_schema,
+                                       meter_schema, device=self.device)
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
         """host_fetch + transfer accounting (count + bytes)."""
@@ -436,35 +473,44 @@ class WindowManager:
     # -- device→host drains ---------------------------------------------
     def _drain_flush(self, entry: _FlushEntry) -> list[FlushedWindow]:
         """Fetch ONE packed flush result and split it into windows: two
-        transfers whatever rides along. With the sketch plane on, the
-        scalar fetch widens to [row count, pending blocks] (pool mode:
-        and closed wide slots) and the row fetch becomes one int32
-        concatenation (flush rows ‖ block rows ‖ block window ids, then,
-        when a wide slot closed, every wide row ‖ its window id — the
-        host skips the open ones); the blocks marry their windows, and a
+        transfers whatever rides along. With the sketch plane or the
+        cascade on, the scalar fetch widens to [row count, pending blocks
+        (sketch on), closed wide slots (pool mode), tier row counts…] and
+        the row fetch becomes one int32 concatenation (flush rows ‖ block
+        rows ‖ block window ids, then, when a wide slot closed, every wide
+        row ‖ its window id — the host skips the open ones — then the
+        rows of each tier flush); the blocks marry their windows, and a
         block whose window has no exact rows in this drain's range
-        becomes a sketch-only window."""
-        if entry.pend is None:
-            total, n_blocks, n_wide = int(self._fetch(entry.total)), 0, 0
-        else:
-            scalars = [entry.total, entry.pend_n]
-            if entry.wide_rows is not None:
-                scalars.append((entry.wide_wins != SENTINEL_WIN).sum())
-            total, n_blocks, n_wide = ([int(v) for v in self._fetch(torch.stack(scalars))]
-                                       + [0])[:3]
+        becomes a sketch-only window. Closed blocks then feed the
+        cascade's parent merges, and the tier windows are built."""
+        scalars = [entry.total]
+        if entry.pend is not None:
+            scalars.append(entry.pend_n)
+        if entry.wide_rows is not None:
+            scalars.append((entry.wide_wins != SENTINEL_WIN).sum())
+        scalars += [tf.total for tf in entry.tiers]
+        vec = [int(v) for v in self._fetch(torch.stack(scalars) if len(scalars) > 1
+                                           else scalars[0]).reshape(-1)]
+        total = vec[0]
+        n_blocks = vec[1] if entry.pend is not None else 0
+        n_wide = vec[2] if entry.wide_rows is not None else 0
+        tier_totals = vec[len(vec) - len(entry.tiers):]
         groups = []  # (block rows, window ids) riding the row transfer
         if n_blocks:
             groups.append((entry.pend[:n_blocks], entry.pend_win[:n_blocks]))
         if n_wide:
             groups.append((entry.wide_rows, entry.wide_wins))
-        if total == 0 and not groups:
-            if not self._sketch_blocks:
+        if total == 0 and not groups and not any(tier_totals):
+            # nothing to transfer; held blocks may still marry this range
+            # and a tier window may close sketch-only
+            if not self._sketch_blocks and not entry.tiers:
                 return []
-            flat = np.zeros((0,), np.uint32)  # held blocks may still marry
+            flat = np.zeros((0,), np.uint32)
         else:
             parts = [entry.packed[:total].reshape(-1)]
             for rows, wins in groups:
                 parts += [rows.reshape(-1), to_i32_bits(wins)]
+            parts += [tf.packed[:t].reshape(-1) for tf, t in zip(entry.tiers, tier_totals)]
             flat = self._fetch(torch.cat(parts) if len(parts) > 1 else parts[0]
                                ).view(np.uint32)
         row_cols = entry.packed.shape[1]
@@ -493,6 +539,20 @@ class WindowManager:
                     count=0, sketches=self._sketch_blocks.pop(w),
                 ))
         flushed.sort(key=lambda f: f.window_idx)
+        if self.cascade is not None:
+            # this drain's closed child blocks feed the parent merges
+            # BEFORE the tier windows are built, so a parent closing in
+            # the same drain sees every child
+            for f in flushed:
+                if f.sketches is not None:
+                    self.cascade.feed_block(0, f.window_idx, f.sketches)
+            tier_wins = []
+            for tf, t in zip(entry.tiers, tier_totals):
+                t_rows = flat[o:o + t * row_cols].reshape(t, row_cols)
+                o += t * row_cols
+                tier_wins += self.cascade.take_tier_windows(tf, t_rows, t)
+            self.tier_windows_dropped += hold_blocks(self.tier_flushed, tier_wins,
+                                                     self.max_held_tier_windows)
         return flushed
 
     def _split_rows(self, rows: np.ndarray, total: int) -> list[FlushedWindow]:
@@ -567,6 +627,8 @@ class WindowManager:
         # cumulative device scalars — mirror, don't accumulate
         self.sketch_rows = vec[CB_SKETCH_ROWS]
         self.sketch_shed = vec[CB_SKETCH_SHED]
+        self.cascade_rows = vec[CB_CASCADE_ROWS]
+        self.cascade_shed = vec[CB_CASCADE_SHED]
         self.sketch_pool_spill = vec[CB_SKETCH_POOL_SPILL]
         self.sketch_pool_occ = vec[CB_SKETCH_POOL_OCC]
         self.sketch_promotions = vec[CB_SKETCH_PROMOTIONS]
@@ -606,12 +668,30 @@ class WindowManager:
 
     def _make_flush_entry(self, packed, total, lo: int, hi: int) -> _FlushEntry:
         """The exact flush handles, widened with the sketch plane's
-        drained pending blocks (every slot below `hi` closes first)."""
+        drained pending blocks (every slot below `hi` closes first) and
+        the cascade's tier fold + flush handles (device work only; the
+        drain bundles them into its two transfers)."""
         entry = _FlushEntry(packed=packed, total=total, lo=int(lo), hi=int(hi))
         if self.sk is not None:
             (self.sk, entry.pend, entry.pend_win, entry.pend_n, entry.wide_rows,
              entry.wide_wins) = sketch_drain(self.sk, hi)
+        if self.cascade is not None:
+            entry.tiers = self.cascade.on_advance(packed, total, int(hi))
         return entry
+
+    def _cascade_lanes(self) -> torch.Tensor:
+        """Device [rows, shed] vector for the counter block's cascade
+        lanes: the cascade's when configured, a cached zero vector
+        otherwise."""
+        return self._zero_lanes if self.cascade is None else self.cascade.lanes_dev
+
+    def pop_tier_windows(self) -> list[FlushedWindow]:
+        """Drain the cascade's closed tier windows (1 m, 1 h …), oldest
+        first. Each carries tier ≥ 1 and its tier `interval`; count == 0
+        with a sketch block attached means the exact tier stash shed the
+        window but the merged child sketches still cover it."""
+        out, self.tier_flushed = self.tier_flushed, []
+        return out
 
     # -- ingest ----------------------------------------------------------
     def ingest(self, timestamp, key_hi, key_lo, tags, meters, valid,
@@ -625,15 +705,16 @@ class WindowManager:
             if self.sk is not None:
                 return _raw_append_step_sk(
                     acc, offset, start_window, st.valid, st.dropped_overflow,
-                    feeder_shed, self._fold_rows_dev, self.sk, timestamp, key_hi,
+                    feeder_shed, self._fold_rows_dev, self._cascade_lanes(), self.sk,
+                    timestamp, key_hi,
                     key_lo, tags, meters, valid, interval=interval,
                     delay=self.config.delay, ix=self._sketch_ix,
                     spec=self.config.sketch.hist,
                 )
             return _raw_append_step(
                 acc, offset, start_window, st.valid, st.dropped_overflow,
-                feeder_shed, self._fold_rows_dev, timestamp, key_hi, key_lo,
-                tags, meters, valid, interval=interval,
+                feeder_shed, self._fold_rows_dev, self._cascade_lanes(), timestamp,
+                key_hi, key_lo, tags, meters, valid, interval=interval,
             )
 
         return self.ingest_step(dispatch, int(timestamp.shape[0]))
@@ -682,14 +763,16 @@ class WindowManager:
         return self._drain_ready(ready)
 
     def flush_all(self) -> list[FlushedWindow]:
-        """Drain every open window (shutdown path)."""
+        """Drain every open window (shutdown path); with the cascade on,
+        every tier window closes too (`hi` = `TierCascade.flush_hi()`)."""
         flushed = self.settle()
         if self.start_window is None:
             return flushed
         self._fold()
-        self.state, packed, total = _flush_range_impl(self.state, 0, U32_MAX,
+        hi = U32_MAX if self.cascade is None else self.cascade.flush_hi()
+        self.state, packed, total = _flush_range_impl(self.state, 0, hi,
                                                       compact=self._flush_compact)
-        self._pending_flush.append(self._make_flush_entry(packed, total, 0, U32_MAX))
+        self._pending_flush.append(self._make_flush_entry(packed, total, 0, hi))
         flushed += self.settle()
         for f in flushed:
             self.start_window = max(self.start_window, f.window_idx + 1)
@@ -719,6 +802,13 @@ class WindowManager:
             "sketch_pool_spill": self.sketch_pool_spill,
             "sketch_pool_occ": self.sketch_pool_occ,
             "sketch_promotions": self.sketch_promotions,
+            # rollup cascade (CB lanes as of the last fetched block) and
+            # the held tier windows (rising dropped = nobody pops)
+            "cascade_rows": self.cascade_rows,
+            "cascade_shed": self.cascade_shed,
+            "tier_windows_held": len(self.tier_flushed),
+            "tier_windows_dropped": self.tier_windows_dropped,
+            **(self.cascade.get_counters() if self.cascade is not None else {}),
         }
 
     @property

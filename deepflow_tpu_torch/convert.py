@@ -1,5 +1,5 @@
-"""Carry stash, accumulator and sketch-plane state between the JAX
-package and the port.
+"""Carry stash, accumulator, sketch-plane and rollup-cascade state
+between the JAX package and the port.
 
 The rollup's state is its "weights": with these, a stream can be split
 midway between the two packages and both go on computing the same
@@ -8,7 +8,10 @@ thing. The numpy form is the reference's `StashState` / `AccumState` /
 column-major [T, S] tags and [M, S] f32 meters, bool valid, int32
 counters and registers, int8 compact HLL registers in pool mode).
 Both sketch-plane modes cross; the pool fields are zero-size in slab
-mode, on both sides.
+mode, on both sides. The cascade's device state is the reference
+`TierCascade`'s per-tier stashes, rings (None before a tier's first
+advance) and int32 fill cursors, its u32 [rows, shed] lanes and its host
+watermarks.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .aggregator.cascade import TierCascade
 from .aggregator.sketchplane import SENTINEL_WIN, SketchState
 from .aggregator.stash import AccumState, StashState
 from .device import resolve_device
@@ -116,3 +120,30 @@ def sketch_to_numpy(sk: SketchState) -> dict:
     out["p_hll"] = sk.p_hll.detach().cpu().numpy()
     out["promote_fill"] = np.float32(float(sk.promote_fill))
     return out
+
+
+def cascade_to_numpy(casc: TierCascade) -> dict:
+    """The port's tier state → {"tiers", "accs", "fills", "lanes",
+    "watermarks"} in the reference's numpy form."""
+    return {
+        "tiers": [stash_to_numpy(t) for t in casc.tiers],
+        "accs": [None if a is None else accum_to_numpy(a) for a in casc.accs],
+        "fills": [np.int32(int(f)) for f in casc.fills],
+        "lanes": to_numpy_u32(casc.lanes_dev),
+        "watermarks": [int(w) for w in casc.watermarks],
+    }
+
+
+def cascade_from_numpy(casc: TierCascade, d: dict) -> TierCascade:
+    """Load tier state in the numpy form of `cascade_to_numpy` into a
+    port TierCascade of the same tier count (on its device)."""
+    n = len(casc.tiers)
+    if any(len(d[k]) != n for k in ("tiers", "accs", "fills", "watermarks")):
+        raise ValueError(f"cascade state of {len(d['tiers'])} tiers does not fit {n}")
+    dev = casc.device
+    casc.tiers = [stash_from_numpy(t, dev) for t in d["tiers"]]
+    casc.accs = [None if a is None else accum_from_numpy(a, dev) for a in d["accs"]]
+    casc.fills = [torch.tensor(int(f), dtype=torch.int64, device=dev) for f in d["fills"]]
+    casc.lanes_dev = from_numpy_u32(d["lanes"], dev)
+    casc.watermarks = [int(w) for w in d["watermarks"]]
+    return casc

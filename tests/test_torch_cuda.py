@@ -204,30 +204,42 @@ def test_segreduce_kernel_segment_shapes(cuda, gather, m, case):
     assert torch.equal(km.nan_to_num(), pm[keep].nan_to_num())
 
 
-def _merge_case(seed, scap=4096, acap=12288, n_keys=3000):
-    """A canonical stash (one seeded ring folded in) and a second ring, on
-    the CPU: integer-valued meters, so sums are exact in any order."""
+def _ring(rng, cap, fill, windows, n_keys):
+    """A ring of `fill` seeded rows on the CPU (FLOW_METER docs) over the
+    windows [lo, hi), ~10% sentinel; integer-valued meters, so sums are
+    exact in any order."""
     from deepflow_tpu_torch.aggregator import stash
     from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
 
+    acc = stash.accum_init(cap, TAG_SCHEMA, FLOW_METER, device="cpu")
+    k = rng.integers(0, n_keys, fill)
+    slot = rng.integers(*windows, fill)
+    slot[rng.random(fill) < 0.1] = 0xFFFFFFFF
+    acc.slot[:fill] = torch.from_numpy(slot)
+    acc.key_hi[:fill] = torch.from_numpy(k * 2654435761 % 2 ** 32)
+    acc.key_lo[:fill] = torch.from_numpy(k)
+    acc.tags[:, :fill] = torch.from_numpy(rng.integers(0, 2 ** 32, (acc.tags.shape[0], fill)))
+    acc.meters[:, :fill] = torch.from_numpy(
+        rng.integers(0, 5000, (acc.meters.shape[0], fill)).astype(np.float32))
+    return acc
+
+
+def _folded(rng, cap, rows, windows, n_keys, acap):
+    """A canonical stash of `cap` rows: one seeded ring folded in."""
+    from deepflow_tpu_torch.aggregator import stash
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+
+    state = stash.stash_init(cap, TAG_SCHEMA, FLOW_METER, device="cpu")
+    return stash.stash_fold_counted(state, _ring(rng, acap, rows, windows, n_keys),
+                                    FLOW_METER)[0]
+
+
+def _merge_case(seed, scap=4096, acap=12288, n_keys=3000):
+    """A canonical stash (one seeded ring folded in) and a second ring, on
+    the CPU."""
     rng = np.random.default_rng(seed)
-
-    def ring(fill):
-        acc = stash.accum_init(acap, TAG_SCHEMA, FLOW_METER, device="cpu")
-        k = rng.integers(0, n_keys, fill)
-        slot = rng.integers(7, 11, fill)
-        slot[rng.random(fill) < 0.1] = 0xFFFFFFFF
-        acc.slot[:fill] = torch.from_numpy(slot)
-        acc.key_hi[:fill] = torch.from_numpy(k * 2654435761 % 2 ** 32)
-        acc.key_lo[:fill] = torch.from_numpy(k)
-        acc.tags[:, :fill] = torch.from_numpy(rng.integers(0, 2 ** 32, (acc.tags.shape[0], fill)))
-        acc.meters[:, :fill] = torch.from_numpy(
-            rng.integers(0, 5000, (acc.meters.shape[0], fill)).astype(np.float32))
-        return acc
-
-    state = stash.stash_init(scap, TAG_SCHEMA, FLOW_METER, device="cpu")
-    state, _, _ = stash.stash_fold_counted(state, ring(acap - 100), FLOW_METER)
-    return state, ring(acap // 2)
+    state = _folded(rng, scap, acap - 100, (7, 11), n_keys, acap)
+    return state, _ring(rng, acap, acap // 2, (7, 11), n_keys)
 
 
 def _to(x, dev):
@@ -307,3 +319,52 @@ def test_pooled_plane_step_card_matches_cpu(cuda):
     for a, b in zip(drained[0][1:], drained[1][1:]):
         assert torch.equal(a, b.cpu())
     assert sketch_fused.LAUNCHES["sketch_fused"] == 0
+
+
+# (fill, child rows, [lo, hi), prefix) of each tier-step branch at a
+# 4096-row child stash: prefix 2048, ring 8192
+_CHILD = 4096
+_PREFIX = 2048
+_TIER_BRANCHES = {
+    "append": (_PREFIX, 3000, (118, 119), _PREFIX),
+    "fold_append": (4 * _PREFIX, 3000, (118, 120), _PREFIX),
+    "direct": (2 * _PREFIX, 7000, (116, 122), _PREFIX),
+    "degenerate": (_PREFIX, 3000, (118, 119), _CHILD),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", list(_TIER_BRANCHES))
+def test_tier_step_card_matches_cpu(cuda, branch):
+    """One seeded cascade tier step per branch of the reference's
+    `lax.cond` (append, fold+append, direct fold, prefix ≥ rows) on the
+    card equals the CPU's: every tier-stash lane, the ring's slot lane,
+    fill and the [rows, shed] lanes; the merge launches the segreduce
+    kernel."""
+    import dataclasses
+
+    from deepflow_tpu_torch.aggregator import cascade, stash
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+
+    fill, rows, (lo, hi), prefix = _TIER_BRANCHES[branch]
+    rng = np.random.default_rng(60 + len(branch))
+    child = _folded(rng, _CHILD, rows, (lo, hi + 2), 1200, 2 * _CHILD)
+    _, packed, total = stash._flush_range_impl(child, lo, hi)
+    assert (int(total) > _PREFIX) == (branch == "direct") and int(total) > 0
+    tier = _folded(rng, 1024, 3000, (1, 3), 1500, 4 * _PREFIX)
+    acc = _ring(rng, 4 * _PREFIX, fill, (1, 3), 1500)
+    out = {}
+    for d in ("cpu", cuda):
+        segreduce.reset_launch_counts()
+        out[d] = cascade.tier_step(
+            _to(tier, d), _to(acc, d), torch.tensor(fill, device=d),
+            torch.tensor([7, 3], device=d), packed.to(d), total.to(d), hi, ratio=60,
+            meter_schema=FLOW_METER, num_tags=TAG_SCHEMA.num_fields, prefix=prefix)
+    torch.cuda.synchronize()
+    assert segreduce.LAUNCHES["segreduce_gather"] == 1
+    (h_tier, h_acc, h_fill, h_lanes), (c_tier, c_acc, c_fill, c_lanes) = out["cpu"], out[cuda]
+    for f in dataclasses.fields(h_tier):
+        assert torch.equal(getattr(c_tier, f.name).cpu(), getattr(h_tier, f.name)), f.name
+    assert torch.equal(c_acc.slot.cpu(), h_acc.slot)
+    assert int(c_fill) == int(h_fill) and torch.equal(c_lanes.cpu(), h_lanes)
+    assert int(h_lanes[0]) > 7

@@ -297,9 +297,11 @@ def test_entry_points_default_to_cuda():
                                 dict(async_drain=True)],
                          ids=["sketch", "cascade", "merge", "stats_ring", "async"])
 def test_unported_window_options_raise(kw):
-    """The cascade, the counter ring and async_drain are not ported and
-    raise; pooled sketch memory and the merge fold are, and build (a pool
-    that is no PoolConfig is a type error)."""
+    """The counter ring and async_drain are not ported and raise; pooled
+    sketch memory, the merge fold and the cascade are, and build (a pool
+    that is no PoolConfig, or a cascade that is no port CascadeConfig, is
+    a type error)."""
+    from deepflow_tpu_torch.aggregator.cascade import CascadeConfig
     from deepflow_tpu_torch.aggregator.sketchplane import PoolConfig, SketchConfig
 
     if "sketch" in kw:
@@ -310,6 +312,11 @@ def test_unported_window_options_raise(kw):
         assert WindowConfig(**kw).fold_mode == "merge"
         with pytest.raises(ValueError, match="fold_mode"):
             WindowConfig(fold_mode="ring")
+    elif "cascade" in kw:
+        with pytest.raises(TypeError, match="CascadeConfig"):
+            WindowConfig(**kw)
+        assert WindowConfig(cascade=CascadeConfig(intervals=(60, 3600))).cascade.intervals \
+            == (60, 3600)
     else:
         with pytest.raises(NotImplementedError):
             WindowConfig(**kw)
