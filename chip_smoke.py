@@ -79,6 +79,26 @@ loudly with a nonzero exit:
    inside the tier steps; no device→host copy in the profiler traces of
    two on_advance calls (a 1-window append, the minute close). Then the
    device time and launches of one tier step and of one tier close.
+3g. The counter ring and async drain, counts zeroed before and read
+   after: L4Pipeline as in 3c (batch 2^21, stash 2^18, the slab plane)
+   over 3 batches a second for T0 … T0+5 (18 ingests, staged on the card
+   first from SyntheticFlowGen(10_000, seed=1)) and a drain, three times:
+   per-batch fetching (the oracle), a K = 4 ring, and async_drain. The
+   ring's DocBatches, sketch blocks and stream counters equal the
+   oracle's; async emits the oracle's windows one ingest call later; the
+   ring's fetches over the 18 ingests are ≤ ⌈18/4⌉ + 2 · advances and
+   < 18; ingests 12–15 of each run are profiled one by one, and the
+   ring's three that do not drain it record no device→host copy. Per
+   run: wall seconds and records/s over the other ingests and the drain,
+   and the profiled ingests' device idle share.
+3h. The live read, counts zeroed before and read after: the K = 4 run
+   again with snapshot_open(force=True) after every third ingest (the
+   one after ingest 8 timed with CUDA events, the one after ingest 17
+   profiled), then with pooled memory and the merge fold. Both streams
+   equal the oracle's; each snapshot takes ≤ 2 fetches; the last
+   snapshot before the drain equals the drained rows (and closed sketch
+   blocks) of each window it holds; the pooled run's snapshots read
+   compact slots and a promoted wide slot.
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
@@ -89,7 +109,10 @@ loudly with a nonzero exit:
    (4d: 2^16-row window and tier stashes, ~13k docs a second, a minute
    boundary, a fold+append and a direct fold), with the full fold and
    the slab plane and with the merge fold and pooled memory: tier
-   windows, tier sketch blocks, cascade lanes and counters exact.
+   windows, tier sketch blocks, cascade lanes and counters exact; then
+   (4e) a K = 4 ring with a snapshot after every second ingest, slab +
+   full fold and pool + merge fold — windows, sketch blocks and every
+   snapshot's windows and open blocks equal — and async_drain once.
 5. One JSON line of each cycle's records/s (with its device idle share
    and kernel launches, and the launches of one fold alone in each fold
    mode), then one of the kernels (with the card's name and power limit;
@@ -585,6 +608,8 @@ def profile_cycle(cycle):
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
         "kernel_launches": sum(e.count for e in kernels),
+        "copies": {d: sum(e.count for e in kernels if f"Memcpy {d}" in e.key)
+                   for d in ("DtoH", "HtoD", "DtoD")},
         "top": [{"kernel": e.key[:90], "count": e.count, "ms": dev_us(e) / 1e3}
                 for e in top],
     }
@@ -667,7 +692,8 @@ def bench_cycle(dev, cycles: int, with_profile: bool = False, sketch=None,
 def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
                     fold_mode: str = "full", *, cascade=None, capacity: int = STASH_CAPACITY,
                     tuples: int = 10_000, seed: int = 1, profile_his=(),
-                    capture_his=(), profile_dt: int | None = None) -> dict:
+                    capture_his=(), profile_dt: int | None = None, window_kw=None,
+                    snapshot_every: int | None = None) -> dict:
     """L4Pipeline over one SyntheticFlowGen stream (sketch plane on with
     `sketch`, the fold of `fold_mode`, the rollup cascade with
     `cascade`): the windows closed before the drain, all DocBatches, the
@@ -676,7 +702,10 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
     second and per minute; with the cascade, the (interval, DocBatch)
     tier windows, the merged tier sketch blocks, the cascade's device
     lanes after the drain and the `record_advances` records. With
-    `profile_dt`, that second's ingest runs under `profile_cycle`."""
+    `profile_dt`, that second's ingest runs under `profile_cycle`.
+    `window_kw` adds WindowConfig fields (stats_ring, async_drain); with
+    `snapshot_every`, a forced snapshot follows every that many ingests
+    (returned under "snapshots")."""
     from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
     from deepflow_tpu_torch.aggregator.window import WindowConfig
     from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
@@ -686,10 +715,10 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
     pipe = L4Pipeline(PipelineConfig(
         window=WindowConfig(capacity=capacity, accum_batches=ACCUM_BATCHES,
                             delay=DELAY, sketch=sketch, fold_mode=fold_mode,
-                            cascade=cascade),
+                            cascade=cascade, **(window_kw or {})),
         batch_size=batch, batch_unique_cap=min(UNIQUE_CAP, batch),
     ), device=device)
-    blocks = []
+    blocks, snapshots = [], []
     process = pipe.wm._process_block
 
     def record(vec):
@@ -714,6 +743,8 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
             docs += pipe.ingest(fb)
         fetches.append(pipe.wm.host_fetches - before)
         tiers += pipe.pop_tier_docbatches()
+        if snapshot_every and len(fetches) % snapshot_every == 0:
+            snapshots.append(pipe.snapshot_open(force=True))
     closed_before_drain = len(docs)
     docs += pipe.drain()
     tiers += pipe.pop_tier_docbatches()
@@ -732,7 +763,7 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
             "minute_clients": {m: distinct(v) for m, v in by_minute.items()},
             "tiers": tiers, "tier_sketches": pipe.closed_tier_sketches,
             "tier_sketch_blocks_dropped": held.get("tier_sketch_blocks_dropped"),
-            "advances": advances, "ingest_profile": ingest_profile,
+            "advances": advances, "ingest_profile": ingest_profile, "snapshots": snapshots,
             "cascade_lanes": (None if cascade is None
                               else [int(v) for v in pipe.wm.cascade.lanes_dev.tolist()])}
 
@@ -1013,15 +1044,27 @@ def all_launches() -> dict:
     return {**segreduce.LAUNCHES, **sketch_fused.LAUNCHES}
 
 
+def same_docs(a: list, b: list) -> bool:
+    """Two DocBatch lists with the same windows, tags and meter bits."""
+    return len(a) == len(b) and all(
+        np.array_equal(x.timestamp, y.timestamp) and np.array_equal(x.tags, y.tags)
+        and np.array_equal(x.meters.view(np.uint32), y.meters.view(np.uint32))
+        for x, y in zip(a, b))
+
+
+def same_blocks(a: list, b: list) -> bool:
+    """Two WindowSketchBlock lists equal lane for lane."""
+    lanes = ("hll", "cms", "hist", "tk_votes", "tk_hi", "tk_lo", "tk_ida", "tk_idb")
+    return len(a) == len(b) and all(
+        (x.window, x.n_updates) == (y.window, y.n_updates)
+        and all(np.array_equal(getattr(x, k), getattr(y, k)) for k in lanes)
+        for x, y in zip(a, b))
+
+
 def check_card_vs_cpu(card: dict, host: dict) -> None:
     """Phase 4: flushed windows, counters and counter blocks identical."""
-    check(len(card["docs"]) == len(host["docs"]) and len(card["docs"]) > 0,
-          "card and CPU closed different window counts")
-    for a, b in zip(card["docs"], host["docs"]):
-        check(np.array_equal(a.timestamp, b.timestamp), "window timestamps differ")
-        check(np.array_equal(a.tags, b.tags), "flushed tags differ card vs CPU")
-        check(np.array_equal(a.meters.view(np.uint32), b.meters.view(np.uint32)),
-              "flushed meters differ card vs CPU")
+    check(len(card["docs"]) > 0 and same_docs(card["docs"], host["docs"]),
+          "flushed windows differ card vs CPU")
     for key in ("doc_in", "flushed_doc", "drop_before_window", "prereduce_dropped",
                 "drop_overflow", "cascade_rows", "cascade_shed", "tier_windows_held",
                 "tier_windows_dropped"):
@@ -1066,6 +1109,195 @@ def check_sketch_blocks_card_vs_cpu(card: list, host: list, coarsen: int = 1) ->
               "a histogram count moved further than one bin card vs CPU")
         moved += crossings
     return moved
+
+
+def check_snapshots_card_vs_cpu(card: list, host: list, coarsen: int = 1) -> int:
+    """Phase 4e: every snapshot's windows identical card vs CPU (rows bit
+    for bit, partial, seq, span start) and their open sketch blocks as in
+    `check_sketch_blocks_card_vs_cpu`; returns the histogram counts moved."""
+    check(len(card) == len(host) > 0, "card and CPU took different snapshot counts")
+    moved = 0
+    for a, b in zip(card, host):
+        check((a.seq, a.open_from) == (b.seq, b.open_from), "snapshot seq/open_from differ")
+        check([w.window_idx for w in a.windows] == [w.window_idx for w in b.windows],
+              "snapshot windows differ card vs CPU")
+        for x, y in zip(a.windows, b.windows):
+            check(x.partial and y.partial and x.count == y.count
+                  and np.array_equal(x.key_hi, y.key_hi) and np.array_equal(x.key_lo, y.key_lo)
+                  and np.array_equal(x.tags, y.tags)
+                  and np.array_equal(x.meters.view(np.uint32), y.meters.view(np.uint32)),
+                  f"snapshot rows of window {x.window_idx} differ card vs CPU")
+            check((x.sketches is None) == (y.sketches is None), "open sketch blocks differ")
+        blocks = [[w.sketches for w in snap.windows if w.sketches is not None]
+                  for snap in (a, b)]
+        if blocks[0]:
+            moved += check_sketch_blocks_card_vs_cpu(*blocks, coarsen=coarsen)
+    return moved
+
+
+def stage_stream(dev, seconds: list[int], seed: int = 1) -> list:
+    """Full-width SyntheticFlowGen(10_000) batches of the given seconds,
+    each uploaded to the card as a pipeline's StagedBatch (the host copy
+    is dropped at once: 18 of them would hold ~15 GB of host memory)."""
+    from deepflow_tpu_torch.aggregator.pipeline import StagedBatch, upload_flow_batch
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    gen = SyntheticFlowGen(num_tuples=10_000, seed=seed)
+    staged = []
+    for dt in seconds:
+        tags, meters, valid = upload_flow_batch(gen.flow_batch(BATCH, T0 + dt), dev)
+        staged.append(StagedBatch(tags=tags, meters=meters, valid=valid, padded_rows=BATCH))
+    torch.cuda.synchronize()
+    return staged
+
+
+def take_snapshot(pipe, how: str | None) -> dict:
+    """One forced snapshot_open: its windows, the fetches and bytes it took
+    (the manager's counters), the rows it returned and, with `how`
+    "events" its CUDA-event time, with "profile" its device time (kernels
+    and copies apart), launches and copies (torch.profiler); the segreduce
+    launches of its eager fold; with the pool, which side of the combo
+    rows each seated ring slot is on (read after the snapshot)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepflow_tpu_torch.ops import segreduce
+
+    wm = pipe.wm
+    f0, b0, s0 = wm.host_fetches, wm.bytes_fetched, sum(segreduce.LAUNCHES.values())
+    out = {}
+    if how == "events":
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        snap = pipe.snapshot_open(force=True)
+        b.record()
+        b.synchronize()
+        out.update(ms=a.elapsed_time(b), host_ms=(time.perf_counter() - t0) * 1e3)
+    elif how == "profile":
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            snap = pipe.snapshot_open(force=True)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in ev if not e.key.startswith("Memcpy")]
+        copies = [e for e in ev if e.key.startswith("Memcpy")]
+        out.update(device_ms=sum(_dev_us(e) for e in kernels) / 1e3,
+                   copy_ms=sum(_dev_us(e) for e in copies) / 1e3,
+                   launches=sum(e.count for e in kernels),
+                   copies={d: sum(e.count for e in copies if d in e.key)
+                           for d in ("DtoH", "HtoD", "DtoD")})
+    else:
+        snap = pipe.snapshot_open(force=True)
+    out.update(snap=snap, fetches=wm.host_fetches - f0, bytes=wm.bytes_fetched - b0,
+               fold_segreduce=sum(segreduce.LAUNCHES.values()) - s0,
+               rows=sum(w.count for w in snap.windows),
+               windows=[w.window_idx for w in snap.windows],
+               blocks=sum(w.sketches is not None for w in snap.windows))
+    if wm.sk is not None and wm.config.sketch.pool is not None:
+        pc = wm.sk.p_hll.shape[0]
+        out["sides"] = sorted({"wide" if s >= pc else "compact"
+                               for s in wm.sk.slot_of.tolist() if s >= 0})
+    return out
+
+
+def ring_stream(dev, staged: list, *, sketch, fold_mode: str = "full", profile_at=(),
+                snapshot_every: int | None = None, snapshot_how=None, **window_kw) -> dict:
+    """L4Pipeline over pre-staged full-width batches (phases 3g–3h; the
+    3c shape) and a drain, with the WindowConfig fields `window_kw`
+    (stats_ring, async_drain). Returns the DocBatches of each ingest call
+    and of the drain, the closed sketch blocks, the counters, the fetches
+    and advances of the ingests, the wall seconds and records/s of the
+    ingests that were not profiled (and the drain), each profiled
+    ingest's `profile_cycle`, and — with `snapshot_every` — a forced
+    snapshot after every that many ingests (`take_snapshot`;
+    `snapshot_how` maps a snapshot's ingest index to its timing)."""
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+
+    pipe = L4Pipeline(PipelineConfig(
+        window=WindowConfig(capacity=STASH_CAPACITY, accum_batches=ACCUM_BATCHES, delay=DELAY,
+                            sketch=sketch, fold_mode=fold_mode, **window_kw),
+        batch_size=BATCH, batch_unique_cap=UNIQUE_CAP), device=dev)
+    calls, profiles, snapshots = [], {}, []
+    wall, rows = 0.0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, st in enumerate(staged):
+        if i in profile_at:
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            profiles[i] = profile_cycle(lambda: calls.append(pipe.ingest_staged(st)))
+            t0 = time.perf_counter()
+        else:
+            calls.append(pipe.ingest_staged(st))
+            rows += BATCH
+        if snapshot_every and i % snapshot_every == snapshot_every - 1:
+            snapshots.append(dict(take_snapshot(pipe, (snapshot_how or {}).get(i)), ingest=i))
+    fetches, advances = pipe.wm.host_fetches, pipe.wm.n_advances
+    calls.append(pipe.drain())
+    torch.cuda.synchronize()
+    wall += time.perf_counter() - t0
+    busy = sum(p["device_busy_ms"] for p in profiles.values())
+    p_wall = sum(p["wall_ms"] for p in profiles.values())
+    return {"calls": calls, "docs": [d for c in calls for d in c],
+            "sketches": pipe.pop_closed_sketches(), "counters": pipe.counters,
+            "fetches": fetches, "advances": advances, "wall_s": wall,
+            "records_per_s": rows / wall, "profiles": profiles,
+            "idle_share": (1 - busy / p_wall) if busy else None, "snapshots": snapshots}
+
+
+STREAM_COUNTERS = ("doc_in", "flushed_doc", "drop_before_window", "prereduce_dropped",
+                   "drop_overflow", "stash_evictions", "sketch_rows", "sketch_shed")
+
+
+def check_ring_async(oracle: dict, ring: dict, asy: dict) -> None:
+    """Phase 3g's checks (see the module docstring)."""
+    check(len(oracle["docs"]) == 6, f"{len(oracle['docs'])} windows from 6 seconds")
+    # the ring defers advance folds: the stash must hold the deferred
+    # windows, as it does at 2^18 rows (with overflow the shed differs)
+    check(ring["counters"]["drop_overflow"] == 0, "the K = 4 run's stash overflowed")
+    check(same_docs(ring["docs"], oracle["docs"]), "K = 4 DocBatches differ from the oracle's")
+    check(same_blocks(ring["sketches"], oracle["sketches"]) and len(oracle["sketches"]) == 6,
+          "K = 4 sketch blocks differ from the oracle's")
+    o_calls, a_calls = oracle["calls"], asy["calls"]
+    check(a_calls[0] == [] and all(same_docs(a_calls[i + 1], o_calls[i])
+                                   for i in range(len(o_calls) - 2))
+          and same_docs(a_calls[-1], o_calls[-2] + o_calls[-1]),
+          "async did not emit the oracle's windows one ingest call later")
+    check(same_blocks(asy["sketches"], oracle["sketches"]), "async sketch blocks differ")
+    for run in (ring, asy):
+        for k in STREAM_COUNTERS:
+            check(run["counters"][k] == oracle["counters"][k], f"counter {k} differs")
+    n = len(o_calls) - 1
+    bound = -(-n // 4) + 2 * ring["advances"]
+    check(ring["fetches"] <= bound and ring["fetches"] < n,
+          f"K = 4: {ring['fetches']} fetches over {n} ingests, bound {bound}")
+    copies = {i: p["copies"]["DtoH"] for i, p in ring["profiles"].items()}
+    check(all(copies[i] == 0 for i in (12, 13, 14)) and copies[15] > 0,
+          f"device→host copies of the profiled K = 4 ingests {copies}")
+
+
+def check_live_read(oracle: dict, run: dict) -> None:
+    """Phase 3h's checks of one snapshot run (see the module docstring)."""
+    check(same_docs(run["docs"], oracle["docs"]), "the snapshot run's DocBatches differ")
+    snaps = run["snapshots"]
+    check(snaps and all(s["fetches"] <= 2 for s in snaps),
+          f"snapshot fetches {[s['fetches'] for s in snaps]}")
+    last = snaps[-1]
+    check(last["ingest"] == len(run["calls"]) - 2 and last["rows"] > 0,
+          "the last snapshot is not after the last ingest")
+    drained = {int(d.timestamp[0]): d for d in run["calls"][-1]}
+    closed = {b.window: b for b in run["sketches"]}
+    for w in last["snap"].windows:
+        d = drained.get(w.start_time)
+        check(d is not None and d.size == w.count and np.array_equal(d.tags, w.tags)
+              and np.array_equal(d.meters.view(np.uint32), w.meters.view(np.uint32)),
+              f"window {w.window_idx}: the last snapshot's rows differ from its flush")
+        if w.sketches is not None:
+            blk = closed.get(w.window_idx)
+            check(blk is not None and same_blocks([w.sketches], [blk]),
+                  f"window {w.window_idx}: the open block differs from the closed one")
 
 
 def load_other_port(path: str):
@@ -1270,11 +1502,8 @@ def main() -> int:
     check(main_pool["sketch_fused"] == 0 and main_pool["segreduce_gather"] > 0,
           f"pool + merge main path launches {main_pool}")
     check_pipeline_run(pool_run)
-    check(len(pool_run["docs"]) == len(run["docs"]), "pool + merge run closed other windows")
-    for a, b in zip(pool_run["docs"], run["docs"]):
-        check(np.array_equal(a.timestamp, b.timestamp) and np.array_equal(a.tags, b.tags)
-              and np.array_equal(a.meters.view(np.uint32), b.meters.view(np.uint32)),
-              "pool + merge windows differ from the full-fold run's")
+    check(same_docs(pool_run["docs"], run["docs"]),
+          "pool + merge windows differ from the full-fold run's")
     p_counters = pool_run["counters"]
     check(p_counters["sketch_promotions"] >= 1, "no window promoted to the wide arena")
     check(max(pool_run["fetches"]) <= 3, f"host fetches per ingest {pool_run['fetches']}")
@@ -1326,6 +1555,60 @@ def main() -> int:
                       "fetches_per_ingest": casc_run["fetches"], **casc_summary,
                       **casc_timings, "counters": casc_run["counters"]})
     del casc_run
+
+    # 3g. the counter ring and async drain at full width: the 3c stream,
+    # 3 batches a second for T0 … T0+5, staged on the card once and
+    # ingested by three pipelines in turn
+    ring_seconds = [dt for dt in range(6) for _ in range(3)]
+    staged = stage_stream(dev, ring_seconds)
+    reset_all_launch_counts()
+    profiled = (12, 13, 14, 15)
+    oracle = ring_stream(dev, staged, sketch=sk_cfg, profile_at=profiled)
+    ring = ring_stream(dev, staged, sketch=sk_cfg, profile_at=profiled, stats_ring=4)
+    asy = ring_stream(dev, staged, sketch=sk_cfg, profile_at=profiled, async_drain=True)
+    main_ring = all_launches()
+    check(main_ring["segreduce_gather"] > 0 and main_ring["sketch_fused"] > 0,
+          f"ring/async path launches {main_ring}")
+    check_ring_async(oracle, ring, asy)
+    ring_runs = {k: {"wall_s": r["wall_s"], "records_per_s": r["records_per_s"],
+                     "device_idle_share_profiled": r["idle_share"], "fetches_18": r["fetches"],
+                     "advances_18": r["advances"],
+                     "profiled": {i: {f: p[f] for f in ("wall_ms", "device_busy_ms",
+                                                        "kernel_launches", "copies")}
+                                  for i, p in r["profiles"].items()}}
+                 for k, r in (("sync", oracle), ("ring4", ring), ("async", asy))}
+    emit({"phase": "ring_async", "launches": main_ring, "runs": ring_runs})
+    del ring, asy
+
+    # 3h. the live read: the K = 4 run with a forced snapshot after every
+    # third ingest (after ingest 8 timed with CUDA events, after ingest 17
+    # profiled: both fold the accumulator ring and read three windows),
+    # then with pooled memory and the merge fold
+    reset_all_launch_counts()
+    live = ring_stream(dev, staged, sketch=sk_cfg, stats_ring=4, snapshot_every=3,
+                       snapshot_how={8: "events", 17: "profile"})
+    check_live_read(oracle, live)
+    live_pool = ring_stream(dev, staged, sketch=pool_cfg, fold_mode="merge", stats_ring=4,
+                            snapshot_every=3)
+    main_live = all_launches()
+    check(main_live["segreduce_gather"] > 0 and main_live["sketch_fused"] > 0,
+          f"live read path launches {main_live}")
+    check_live_read(oracle, live_pool)
+    sides = {side for snap in live_pool["snapshots"] for side in snap.get("sides", ())}
+    check(sides == {"compact", "wide"} and live_pool["counters"]["sketch_promotions"] >= 1,
+          f"the pooled snapshots read the sides {sorted(sides)}")
+
+    def snap_summary(snap):
+        return {k: v for k, v in snap.items() if k != "snap"}
+
+    live_summary = {"launches": main_live,
+                    "slab": [snap_summary(x) for x in live["snapshots"]],
+                    "pool": [snap_summary(x) for x in live_pool["snapshots"]],
+                    "records_per_s_with_snapshots": {"slab": live["records_per_s"],
+                                                     "pool": live_pool["records_per_s"]}}
+    emit({"phase": "live_read", **live_summary})
+    del staged, oracle, live, live_pool
+    torch.cuda.empty_cache()
 
     # 4. card vs CPU on the same stream, exact; 4b with the sketch plane
     seconds = [0, 0, 1, 2, 1, 3, 4, 6, 3, 5, 8]  # the second 3 is late
@@ -1385,6 +1668,27 @@ def main() -> int:
                           "card_s": card["seconds"], "cpu_s": host["seconds"],
                           "cascade_lanes": card["cascade_lanes"]})
 
+    # 4e. the counter ring with interleaved snapshots (slab + full fold,
+    # pool + merge fold) and async drain, card vs CPU on the 4-series stream
+    for label, cfg, mode, coarsen, wkw, every in (
+            ("ring_slab_full", sk_cfg, "full", 1, dict(stats_ring=4), 2),
+            ("ring_pool_merge", pool_cfg, "merge", pool_cfg.pool.hist_factor,
+             dict(stats_ring=4), 2),
+            ("async_slab_full", sk_cfg, "full", 1, dict(async_drain=True), None)):
+        kw = dict(sketch=cfg, fold_mode=mode, window_kw=wkw, snapshot_every=every)
+        card = pipeline_stream(dev, SMALL_BATCH, seconds, **kw)
+        host = pipeline_stream("cpu", SMALL_BATCH, seconds, **kw)
+        check_card_vs_cpu(card, host)
+        moved = check_sketch_blocks_card_vs_cpu(card["sketches"], host["sketches"],
+                                                coarsen=coarsen)
+        if every:
+            moved += check_snapshots_card_vs_cpu(card["snapshots"], host["snapshots"],
+                                                 coarsen=coarsen)
+        emit({"phase": f"card_vs_cpu_{label}", "windows": len(card["docs"]),
+              "blocks": len(card["sketches"]), "snapshots": len(card["snapshots"]),
+              "snapshot_windows": sum(len(x.windows) for x in card["snapshots"]),
+              "hist_counts_moved": moved, "card_s": card["seconds"], "cpu_s": host["seconds"]})
+
     # 5. result lines
     kernels = []
     launches = {"segreduce_gather": (main_gather, per_cycle_gather),
@@ -1408,7 +1712,8 @@ def main() -> int:
             # cascade main path, each with its counts zeroed before it and
             # read after it
             "launches_merge_cycles": main_merge[k], "launches_pool_merge": main_pool[k],
-            "launches_cascade": main_cascade[k],
+            "launches_cascade": main_cascade[k], "launches_ring_async": main_ring[k],
+            "launches_live_read": main_live[k],
         })
     sk_name, sk_replaces, sk_source = SKETCH_KERNEL
     kernels.append({
@@ -1417,6 +1722,7 @@ def main() -> int:
         "launches_per_cycle": per_cycle_sketch[sk_name],
         "launches_pool_merge": main_pool[sk_name],
         "launches_cascade": main_cascade[sk_name],
+        "launches_ring_async": main_ring[sk_name], "launches_live_read": main_live[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
@@ -1446,6 +1752,17 @@ def main() -> int:
                       "launches_per_fold": {"merge": prof_merge["fold"]["kernel_launches"],
                                             "full": prof["fold"]["kernel_launches"]},
                       "sketch": dataclasses.asdict(pool_cfg)}))
+    print(json.dumps({"metric": "port_ring_async_records_per_sec", "unit": "records/s",
+                      "gpu": gpu, "batch": BATCH, "ingests": len(ring_seconds),
+                      **{k: {f: r[f] for f in ("records_per_s", "wall_s",
+                                               "device_idle_share_profiled", "fetches_18")}
+                         for k, r in ring_runs.items()}}))
+    timed = {x["ingest"]: x for x in live_summary["slab"]}
+    print(json.dumps({"metric": "port_snapshot_ms", "value": timed[8]["ms"], "gpu": gpu,
+                      "device_ms": timed[17]["device_ms"], "copy_ms": timed[17]["copy_ms"],
+                      "launches": timed[17]["launches"],
+                      "rows": timed[8]["rows"], "bytes": timed[8]["bytes"],
+                      "windows": timed[8]["windows"], "fetches": timed[8]["fetches"]}))
     print(json.dumps({"gpu": gpu, "kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -390,14 +390,10 @@ class TierCascade:
         exact = {f.window_idx for f in flushed}
         for w in sorted(self.pending_blocks[i]):
             if tf.lo <= w < tf.hi and w not in exact:
-                flushed.append(FlushedWindow(
-                    window_idx=w, start_time=w * tf.interval,
-                    key_hi=np.zeros((0,), np.uint32), key_lo=np.zeros((0,), np.uint32),
-                    tags=np.zeros((0, self.num_tags), np.uint32),
-                    meters=np.zeros((0, self.meter_schema.num_fields), np.float32),
-                    count=0, sketches=self.pending_blocks[i].pop(w), tier=i + 1,
-                    interval=tf.interval,
-                ))
+                flushed.append(FlushedWindow.sketch_only(
+                    w, w * tf.interval, self.pending_blocks[i].pop(w),
+                    num_tags=self.num_tags, num_meters=self.meter_schema.num_fields,
+                    tier=i + 1, interval=tf.interval))
         flushed.sort(key=lambda f: f.window_idx)
         for f in flushed:
             if f.sketches is not None:

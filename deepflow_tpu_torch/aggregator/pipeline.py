@@ -23,9 +23,14 @@ closed 1 m / 1 h tier windows come out of `pop_tier_docbatches()`;
 pipeline that way, and `DoubleIngestPipeline` — two pipelines, every
 batch ingested twice — is kept as its conformance oracle.
 
+`RollupPipeline.snapshot_open()` is the live read of the open windows
+(WindowManager.snapshot_open); its [reads, bytes] lanes ride every
+counter block. The WindowManager's counter ring (`stats_ring`) and
+`async_drain` apply to every pipeline step.
+
 Not ported yet: countable registration, profiling census, lineage,
-telemetry, live snapshots, and the datasource registration of cascade
-tiers (server/datasource.py).
+telemetry, and the datasource registration of cascade tiers
+(server/datasource.py).
 """
 
 from __future__ import annotations
@@ -254,12 +259,14 @@ class RollupPipeline:
         self.closed_tier_sketches: list = []
         self.tier_sketch_blocks_dropped = 0
 
-    def _step(self, acc, offset: int, start_window: int, stash_valid, stash_evict,
-              feeder_shed: int, fold_rows, casc_lanes, sk, tags: dict, meters, valid):
+    def _step(self, acc, offset: int, start_window, stash_valid, stash_evict,
+              feeder_shed: int, fold_rows, casc_lanes, snap_lanes, sk, tags: dict, meters,
+              valid):
         """One batch: [pre-reduce →] [sketch plane →] fanout →
-        fingerprint → counter block (with the cascade's [rows, shed]
-        lanes) → ring append. Returns (acc, counter block), plus the
-        sketch plane when it is on."""
+        fingerprint → counter block (with the cascade's [rows, shed] and
+        the live read's [reads, bytes] lanes) → ring append. Returns
+        (acc, counter block), plus the sketch plane when it is on.
+        `start_window` is a host int or the device gate (stats_ring > 1)."""
         window_cfg = self.config.window
         interval = window_cfg.interval
         aux = None
@@ -285,6 +292,7 @@ class RollupPipeline:
             stash_valid=stash_valid, stash_evictions=stash_evict,
             ring_fill=offset, feeder_shed=feeder_shed, fold_rows=fold_rows,
             cascade_rows=casc_lanes[0], cascade_shed=casc_lanes[1],
+            snapshot_reads=snap_lanes[0], snapshot_bytes=snap_lanes[1],
             **sketch_counter_lanes(sk),
         )
         acc = _append_impl(acc, window, hi, lo, doc_tags, doc_meters, gated, offset)
@@ -335,7 +343,8 @@ class RollupPipeline:
             return self._step(acc, offset, start_window, st.valid,
                               st.dropped_overflow, feeder_shed,
                               self.wm._fold_rows_dev, self.wm._cascade_lanes(),
-                              self.wm.sk, staged.tags, staged.meters, staged.valid)
+                              self.wm._snapshot_lanes(), self.wm.sk, staged.tags,
+                              staged.meters, staged.valid)
 
         return self._convert_flushed(
             self.wm.ingest_step(dispatch, rows, ring_rows=max_rows)
@@ -343,6 +352,12 @@ class RollupPipeline:
 
     def drain(self) -> list[DocBatch]:
         return self._convert_flushed(self.wm.flush_all())
+
+    def snapshot_open(self, *, force: bool = False):
+        """The live read: a read-only OpenSnapshot of the open window span
+        (rate-limited; WindowManager.snapshot_open). Ingest is untouched;
+        the read costs 2 fetches."""
+        return self.wm.snapshot_open(force=force)
 
     def _convert_flushed(self, flushed: list[FlushedWindow]) -> list[DocBatch]:
         """FlushedWindows → DocBatches; closed sketch blocks are captured

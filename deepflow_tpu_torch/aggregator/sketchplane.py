@@ -47,8 +47,10 @@ Differences from the reference, none visible in any output:
     ops/sketch_fused.sketch_update_fused (the CUDA kernel on the card).
     With top-K off there is no sort and no kernel: per-row scatters.
 
-Not ported: open-window snapshots (`_flatten_wide_open` and the combined
-compact ‖ wide snapshot rows), the cascade's tier merges.
+The live read plane reads the open slots without closing them
+(`_flatten_open_snapshot`): slab mode packs the ring like a close, pool
+mode packs each ring slot's compact part ‖ wide part, and the part with
+a nonzero count word is the live one (`unpack_drained`).
 """
 
 from __future__ import annotations
@@ -338,6 +340,27 @@ def _flatten_compact(sk: SketchState) -> torch.Tensor:
          to_i32_bits(hll_pack_registers(sk.p_hll[cp])).reshape(r, -1)]
         + [getattr(sk, k)[cp].reshape(r, -1) for k in POOL_PLANES[1:]], dim=1)
     return torch.where(isc[:, None], row, 0)
+
+
+def _flatten_wide_open(sk: SketchState) -> torch.Tensor:
+    """Pool mode: [R, WIDE] int32 — each ring slot's wide-arena row
+    (all-zero unless the slot was promoted), with the slot's count word."""
+    pc, pw = sk.p_hll.shape[0], sk.hll.shape[0]
+    isw = sk.slot_of >= pc
+    wp = (sk.slot_of - pc).clamp(0, pw - 1)
+    rows = _flatten_open(sk, sk.count.new_zeros(pw))[wp]
+    rows[:, 0] = to_i32_bits(torch.where(isw, sk.count, 0))
+    return torch.where(isw[:, None], rows, 0)
+
+
+def _flatten_open_snapshot(sk: SketchState) -> torch.Tensor:
+    """The live read's packed rows of the open ring, one per slot: slab
+    mode [R, WIDE] (`_flatten_open`); pool mode [R, CW + WIDE], compact
+    part ‖ wide part, where a live slot's count word (always ≥ 1) is
+    nonzero on exactly one side. Nothing is closed or written."""
+    if _pool_mode(sk):
+        return torch.cat([_flatten_compact(sk), _flatten_wide_open(sk)], dim=1)
+    return _flatten_open(sk)
 
 
 def _to_pending(sk: SketchState, close, blocks) -> None:
@@ -859,14 +882,23 @@ def hold_blocks(held: list, new_blocks, cap: int) -> int:
 
 def unpack_drained(rows: np.ndarray, wins: np.ndarray, cfg: SketchConfig):
     """Fetched [n, width] u32 block rows + [n] window ids →
-    WindowSketchBlocks, dispatching on the width: `compact_block_width`
-    (pool mode's pending rows) or `block_width`. Blocks that never saw a
-    row are dropped."""
-    compact = cfg.pool is not None and rows.shape[1] == cfg.compact_block_width
-    unpack = WindowSketchBlock.from_compact_row if compact else WindowSketchBlock.from_row
+    WindowSketchBlocks, dispatching on the width: `block_width` (wide
+    rows), `compact_block_width` (pool mode's pending rows) or their sum
+    (the live read's compact ‖ wide rows: the side whose count word is
+    nonzero is the live one). Blocks that never saw a row are dropped."""
+    cw = cfg.compact_block_width if cfg.pool is not None else None
     out = []
     for i in range(rows.shape[0]):
-        blk = unpack(rows[i], int(wins[i]), cfg)
+        row, window = rows[i], int(wins[i])
+        if cw is not None and row.shape[0] == cw + cfg.block_width:
+            if int(row[0]):
+                blk = WindowSketchBlock.from_compact_row(row[:cw], window, cfg)
+            else:
+                blk = WindowSketchBlock.from_row(row[cw:], window, cfg)
+        elif cw is not None and row.shape[0] == cw:
+            blk = WindowSketchBlock.from_compact_row(row, window, cfg)
+        else:
+            blk = WindowSketchBlock.from_row(row, window, cfg)
         if blk.n_updates or len(blk.tk_hi):
             out.append(blk)
     return out

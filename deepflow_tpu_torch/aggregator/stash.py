@@ -20,7 +20,10 @@ leaves, the compacting range flush (`compact=True`) keeps and
 The JAX package's functions are pure and donate their inputs; here the
 accumulator ring is updated IN PLACE (`_append_impl` writes its slice,
 the folds reset the slot lanes they consume), which saves a ring-sized
-copy per batch. The live snapshot is not ported yet.
+copy per batch.
+
+The live read plane's `stash_snapshot_range` packs the open windows'
+rows in the flush layout without touching the stash.
 """
 
 from __future__ import annotations
@@ -333,6 +336,17 @@ def _flush_range_impl(state: StashState, lo_window: int, hi_window: int, *,
         tags=state.tags[:, idx], meters=state.meters[:, idx], valid=valid[idx],
         dropped_overflow=state.dropped_overflow,
     ), packed, total
+
+
+def stash_snapshot_range(state: StashState, lo_window: int, hi_window):
+    """READ-ONLY twin of `_flush_range_impl` (the live read plane): pack
+    every live row in [lo_window, hi_window) — same order, layout and
+    unpack — without reclaiming a slot or compacting. The stash is not
+    written, so the later real flush of the same windows emits the same
+    rows plus whatever arrived after the snapshot. Returns (packed,
+    total)."""
+    _, packed, total = _pack_window_range(state, lo_window, hi_window)
+    return packed, total
 
 
 def unpack_flush_rows(rows: np.ndarray, num_tags: int):

@@ -1,5 +1,5 @@
 """Window ring controller — SubQuadGen/Collector window semantics (port of
-deepflow_tpu/aggregator/window.py, sync mode).
+deepflow_tpu/aggregator/window.py).
 
   * time is bucketed into fixed `interval` windows;
   * a window stays open for `delay` seconds after its end to absorb
@@ -32,14 +32,29 @@ still comes out, sketch-only (count == 0). With fold_mode="merge" the
 folds rank-merge the sorted ring into the stash, and an advance folds
 only the closing span (aggregator/stash.py); the windows are the same.
 
-Not ported yet (WindowConfig raises NotImplementedError): the K-batch
-counter ring (stats_ring > 1) and async_drain; retry/chaos seams,
-lineage, spans, profiling registration and live snapshots are absent.
+Two options defer the per-batch fetch. `stats_ring = K > 1` writes
+each counter block into a device [K, CB_LEN] ring and fetches the ring
+once per K dispatches; the late gate moves to a device [start_window,
+opened] pair (`_stats_ring_push`), so the flushed output is the same as
+with per-batch fetching. `async_drain` defers each block's fetch by one
+ingest call: windows come out one call later, identical. `settle()`
+drains both, then the dispatched flushes.
+
+The live read plane: `snapshot_open()` folds the accumulator ring into
+the stash and reads every open window's rows plus the open sketch slots
+in two fetches, without closing anything (`OpenSnapshot`, windows with
+`partial=True`); the later flush of a window supersedes its snapshot.
+Reads are rate-limited by `WindowConfig.min_snapshot_interval`, counted
+in `snapshot_reads` / `snapshot_bytes`, and mirrored into counter-block
+lanes 16–17.
+
+Absent: retry/chaos seams, lineage, spans and profiling registration.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -54,6 +69,7 @@ from .sketchplane import (
     SketchConfig,
     SketchState,
     WindowSketchBlock,
+    _flatten_open_snapshot,
     hold_blocks,
     scalar_tensor,
     sketch_drain,
@@ -72,6 +88,7 @@ from .stash import (
     stash_fold_counted,
     stash_merge_fold,
     stash_init,
+    stash_snapshot_range,
     unpack_flush_rows,
 )
 
@@ -103,8 +120,8 @@ COUNTER_BLOCK_VERSION = 7
     CB_SKETCH_SHED,  # cumulative rows the sketch plane counted-shed
     CB_CASCADE_ROWS,  # cumulative rows the cascade's tier folds consumed
     CB_CASCADE_SHED,  # cumulative tier-stash overflow sheds
-    CB_SNAPSHOT_READS,  # live read plane (not ported: 0)
-    CB_SNAPSHOT_BYTES,
+    CB_SNAPSHOT_READS,  # cumulative live snapshot_open() reads
+    CB_SNAPSHOT_BYTES,  # cumulative live snapshot bytes fetched (mod 2^32)
     CB_SKETCH_POOL_SPILL,  # cumulative rows the full pool could not seat
     CB_SKETCH_POOL_OCC,  # seated ring slots + closed wide slots at dispatch
     CB_SKETCH_PROMOTIONS,  # cumulative compact → wide promotions (0 in slab mode)
@@ -119,11 +136,12 @@ CB_FIELDS = (
 )
 
 
-def batch_stats(timestamp, valid, start_window: int, interval: int, aux=None):
+def batch_stats(timestamp, valid, start_window, interval: int, aux=None):
     """Per-batch bookkeeping on the device: returns (gated_valid, window,
     stats[5] u32) with stats = [t_max, t_min, n_valid, n_late, aux].
-    `start_window` 0 = no gate yet. t_max/t_min are over pre-gate valid
-    rows (0 / U32_MAX when none)."""
+    `start_window` (a host int or a 0-dim device tensor; 0 = no gate yet)
+    is never read back. t_max/t_min are over pre-gate valid rows (0 /
+    U32_MAX when none)."""
     window = timestamp // interval
     late = valid & (window < start_window)
     gated = valid & ~late
@@ -138,16 +156,15 @@ def batch_stats(timestamp, valid, start_window: int, interval: int, aux=None):
     return gated, window, stats
 
 
-def batch_counter_block(timestamp, valid, start_window: int, interval: int, *,
+def batch_counter_block(timestamp, valid, start_window, interval: int, *,
                         aux=None, excess_hits=None, stash_valid=None,
                         stash_evictions=None, ring_fill=None, feeder_shed=None,
                         fold_rows=None, sketch_rows=None, sketch_shed=None,
-                        cascade_rows=None, cascade_shed=None,
-                        sketch_pool_spill=None, sketch_pool_occ=None,
-                        sketch_promotions=None):
+                        cascade_rows=None, cascade_shed=None, snapshot_reads=None,
+                        snapshot_bytes=None, sketch_pool_spill=None,
+                        sketch_pool_occ=None, sketch_promotions=None):
     """`batch_stats` widened into the v7 counter block (one int64 tensor
-    of CB_LEN u32 lanes). The snapshot lanes belong to the live read
-    plane, which this package has not ported: they stay 0."""
+    of CB_LEN u32 lanes); an absent lane is 0."""
     gated, window, stats = batch_stats(timestamp, valid, start_window, interval, aux=aux)
     dev = timestamp.device
 
@@ -158,14 +175,13 @@ def batch_counter_block(timestamp, valid, start_window: int, interval: int, *,
     tail = torch.stack([lane(excess_hits), occ, lane(stash_evictions),
                         lane(ring_fill), lane(feeder_shed), lane(fold_rows),
                         lane(sketch_rows), lane(sketch_shed), lane(cascade_rows),
-                        lane(cascade_shed)])
+                        lane(cascade_shed), lane(snapshot_reads), lane(snapshot_bytes),
+                        lane(sketch_pool_spill), lane(sketch_pool_occ),
+                        lane(sketch_promotions)])
     block = torch.cat([
         torch.full((1,), COUNTER_BLOCK_VERSION, dtype=torch.int64, device=dev),
         stats,
         tail & MASK,
-        torch.zeros((CB_SKETCH_POOL_SPILL - CB_SNAPSHOT_READS,), dtype=torch.int64, device=dev),
-        torch.stack([lane(sketch_pool_spill), lane(sketch_pool_occ),
-                     lane(sketch_promotions)]) & MASK,
     ])
     return gated, window, block
 
@@ -182,16 +198,19 @@ def sketch_counter_lanes(sk: SketchState | None) -> dict:
                 sketch_pool_occ=occ, sketch_promotions=sk.pool_promos)
 
 
-def _raw_append_step(acc, offset: int, start_window: int, stash_valid, stash_evict,
-                     feeder_shed: int, fold_rows, casc_lanes, timestamp, key_hi, key_lo,
-                     tags, meters, valid, *, interval: int, sk: SketchState | None = None):
+def _raw_append_step(acc, offset: int, start_window, stash_valid, stash_evict,
+                     feeder_shed: int, fold_rows, casc_lanes, snap_lanes, timestamp, key_hi,
+                     key_lo, tags, meters, valid, *, interval: int,
+                     sk: SketchState | None = None):
     """One raw doc batch: late gate + counter block (with the cascade's
-    [rows, shed] lanes and those of the sketch plane `sk`) + ring append."""
+    [rows, shed] lanes, the live read's [reads, bytes] lanes and those of
+    the sketch plane `sk`) + ring append."""
     gated, window, block = batch_counter_block(
         timestamp, valid, start_window, interval,
         stash_valid=stash_valid, stash_evictions=stash_evict, ring_fill=offset,
         feeder_shed=feeder_shed, fold_rows=fold_rows, cascade_rows=casc_lanes[0],
-        cascade_shed=casc_lanes[1], **sketch_counter_lanes(sk),
+        cascade_shed=casc_lanes[1], snapshot_reads=snap_lanes[0],
+        snapshot_bytes=snap_lanes[1], **sketch_counter_lanes(sk),
     )
     acc = _append_impl(acc, window, key_hi, key_lo, tags, meters, gated, offset)
     return acc, block
@@ -279,9 +298,9 @@ def sketch_span_bounds(start_window, ts, valid, *, interval: int, delay: int):
     return base_w, close_w
 
 
-def _raw_append_step_sk(acc, offset: int, start_window: int, stash_valid, stash_evict,
-                        feeder_shed: int, fold_rows, casc_lanes, sk: SketchState, timestamp,
-                        key_hi, key_lo, tags, meters, valid, *, interval: int,
+def _raw_append_step_sk(acc, offset: int, start_window, stash_valid, stash_evict,
+                        feeder_shed: int, fold_rows, casc_lanes, snap_lanes, sk: SketchState,
+                        timestamp, key_hi, key_lo, tags, meters, valid, *, interval: int,
                         delay: int, ix: tuple, spec):
     """`_raw_append_step` with the sketch plane folded in: the caller's
     doc fingerprint is the flow key, the client identity re-derives from
@@ -295,10 +314,37 @@ def _raw_append_step_sk(acc, offset: int, start_window: int, stash_valid, stash_
                            base_w=base_w, close_w=close_w, **inp)
     acc, block = _raw_append_step(
         acc, offset, start_window, stash_valid, stash_evict, feeder_shed, fold_rows,
-        casc_lanes, timestamp, key_hi, key_lo, tags, meters, valid, interval=interval,
-        sk=sk,
+        casc_lanes, snap_lanes, timestamp, key_hi, key_lo, tags, meters, valid,
+        interval=interval, sk=sk,
     )
     return acc, block, sk
+
+
+def _stats_ring_push(ring, k: int, sw_state, block, *, interval: int, delay: int):
+    """Device side of the K-batch counter ring: write one batch's counter
+    block into row `k` of the [K, CB_LEN] ring (in place) and advance the
+    device-resident window gate `sw_state` = [start_window, opened] —
+    without a host sync, so the host fetches the whole ring once per K
+    dispatches. Returns (ring, new sw_state).
+
+    The update replicates `_process_block`'s host bookkeeping exactly:
+    after ANY non-empty block the host span ends at max(previous,
+    (t_max − delay) // interval) — on the opening batch it first opens
+    at max(0, min(t_min, t_max − delay)) but then advances to that same
+    value within the SAME block (open_w ≤ adv_w always), so adv_w is the
+    post-block gate in both cases. The late gate of every deferred batch
+    therefore sees the SAME start_window it would have seen under
+    per-batch fetching — the invariant that makes the K-ring flush output
+    bit-exact against the per-batch oracle: no row that per-batch mode
+    would late-drop can reach a window the deferred flush later closes.
+    u32 values ride int64 lanes; every value stays in [0, 2^32)."""
+    ring[k] = block
+    t_max = block[CB_T_MAX]
+    has = block[CB_N_VALID] > 0
+    t_adj = torch.where(t_max > delay, t_max - delay, 0)
+    new_sw = torch.where(has, torch.maximum(sw_state[0], t_adj // interval), sw_state[0])
+    opened = ((sw_state[1] > 0) | has).long()
+    return ring, torch.stack([new_sw, opened])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -319,9 +365,20 @@ class WindowConfig:
     # coarser tiers (1 m, 1 h …) on the device; tier windows surface via
     # WindowManager.pop_tier_windows(). None = off.
     cascade: CascadeConfig | None = None
-    # reference options this package has not ported yet: set, they raise
+    # defer each batch's counter-block fetch by one ingest call: flushed
+    # windows come out one call later, identical; counters trail by ≤ 1
+    # batch. flush_all()/settle() always settle.
     async_drain: bool = False
+    # K-batch counter ring: K batches' counter blocks collect in a device
+    # [K, CB_LEN] ring fetched once per K dispatches; the late gate moves
+    # to device state (_stats_ring_push), so flushed rows stay bit-exact
+    # vs per-batch fetching, and windows close up to K − 1 batches later.
+    # 1 = per-batch fetch. Mutually exclusive with async_drain.
     stats_ring: int = 1
+    # live read plane: minimum wall-clock seconds between two device
+    # snapshot reads; snapshot_open() inside it returns the cached
+    # OpenSnapshot (force=True bypasses)
+    min_snapshot_interval: float = 0.25
 
     def __post_init__(self):
         check_fold_mode(self.fold_mode)
@@ -334,16 +391,6 @@ class WindowConfig:
                 )
         if self.cascade is not None:
             self.cascade.validate_base(self.interval)
-        unported = {
-            "stats_ring>1": self.stats_ring != 1,
-            "async_drain": self.async_drain,
-        }
-        missing = [k for k, on in unported.items() if on]
-        if missing:
-            raise NotImplementedError(
-                f"WindowConfig options not ported to deepflow_tpu_torch yet: "
-                f"{', '.join(missing)}"
-            )
 
     @property
     def ring(self) -> int:
@@ -392,7 +439,50 @@ class FlushedWindow:
     # (window_idx and start_time are already in tier units)
     tier: int = 0
     interval: int = 0
-    partial: bool = False  # live snapshot view (not ported: always False)
+    # live read plane: True = a snapshot of a still-OPEN window (the later
+    # real flush supersedes it); flushed windows are always False
+    partial: bool = False
+
+    @classmethod
+    def sketch_only(cls, window_idx: int, start_time: int, sketches, *, num_tags: int,
+                    num_meters: int, **kw) -> "FlushedWindow":
+        """A window with no exact rows (all shed, or none in a snapshot
+        yet) that its sketch block still covers."""
+        return cls(window_idx=window_idx, start_time=start_time,
+                   key_hi=np.zeros((0,), np.uint32), key_lo=np.zeros((0,), np.uint32),
+                   tags=np.zeros((0, num_tags), np.uint32),
+                   meters=np.zeros((0, num_meters), np.float32), count=0,
+                   sketches=sketches, **kw)
+
+
+@dataclasses.dataclass
+class OpenSnapshot:
+    """One pull of the open window span: partial=True FlushedWindows in
+    the flush's row layout and (window, stash position) order, with the
+    open sketch slots attached where the plane is on. `seq` increments
+    per actual device read (cached returns keep theirs); `open_from` is
+    the open span's first second (None = nothing ingested yet)."""
+
+    windows: list[FlushedWindow]
+    taken_monotonic: float
+    open_from: int | None = None
+    seq: int = 0
+
+
+def attach_open_sketch_blocks(windows: list[FlushedWindow], merged: dict, *,
+                              interval: int, num_tags: int,
+                              num_meters: int) -> list[FlushedWindow]:
+    """The open snapshot's block-marry rule: attach each window's open
+    sketch block, add a row-less partial window for every block whose
+    window has no exact rows, and return the list sorted by window.
+    `merged` (window → block) is consumed."""
+    for f in windows:
+        f.sketches = merged.pop(f.window_idx, None)
+    for w in sorted(merged):
+        windows.append(FlushedWindow.sketch_only(w, w * interval, merged[w], num_tags=num_tags,
+                                                 num_meters=num_meters, partial=True))
+    windows.sort(key=lambda f: f.window_idx)
+    return windows
 
 
 class WindowManager:
@@ -400,6 +490,13 @@ class WindowManager:
 
     def __init__(self, config: WindowConfig, tag_schema: TagSchema = TAG_SCHEMA,
                  meter_schema: MeterSchema = FLOW_METER, *, device=None):
+        if config.stats_ring < 1:
+            raise ValueError("stats_ring must be >= 1")
+        if config.stats_ring > 1 and config.async_drain:
+            raise ValueError(
+                "stats_ring > 1 already defers stats fetches; combining it "
+                "with async_drain would double-defer — pick one"
+            )
         self.config = config
         self.tag_schema = tag_schema
         self.meter_schema = meter_schema
@@ -462,6 +559,29 @@ class WindowManager:
         if config.cascade is not None:
             self.cascade = TierCascade(config.cascade, config.interval, tag_schema,
                                        meter_schema, device=self.device)
+        # live read plane: host-authoritative snapshot counters, the cached
+        # device [reads, bytes] vector riding into every counter block
+        # (rebuilt only when a snapshot is taken, so no per-batch upload),
+        # the rate-limit cache, and the lanes' mirrors as of the last
+        # fetched block
+        self.snapshot_reads = 0
+        self.snapshot_bytes = 0
+        self.snapshot_seq = 0
+        self._snap_lanes_dev = torch.zeros((2,), dtype=torch.int64, device=self.device)
+        self._snapshot_cache: OpenSnapshot | None = None
+        self.device_snapshot_reads = 0
+        self.device_snapshot_bytes = 0
+        # async_drain: the deferred counter block (device), fetched next call
+        self._pending_stats: torch.Tensor | None = None
+        # K-batch counter ring (stats_ring > 1): the device [K, CB_LEN]
+        # ring, the blocks in it awaiting the fetch, and the device gate
+        # [start_window, opened]; the host span catches up at each drain
+        k = config.stats_ring
+        self._cb_ring = (torch.zeros((k, CB_LEN), dtype=torch.int64, device=self.device)
+                         if k > 1 else None)
+        self._ring_count = 0
+        self._sw_state = (torch.zeros((2,), dtype=torch.int64, device=self.device)
+                          if k > 1 else None)
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
         """host_fetch + transfer accounting (count + bytes)."""
@@ -516,7 +636,7 @@ class WindowManager:
         row_cols = entry.packed.shape[1]
         o = total * row_cols
         self.total_flushed += total
-        flushed = self._split_rows(flat[:o].reshape(total, row_cols), total)
+        flushed = self._split_rows(flat[:o].reshape(total, row_cols))
         for rows, _ in groups:
             k, width = rows.shape
             block_rows = flat[o:o + k * width].reshape(k, width)
@@ -531,13 +651,10 @@ class WindowManager:
         exact_wins = {f.window_idx for f in flushed}
         for w in sorted(self._sketch_blocks):
             if entry.lo <= w < entry.hi and w not in exact_wins:
-                flushed.append(FlushedWindow(
-                    window_idx=w, start_time=w * self.config.interval,
-                    key_hi=np.zeros((0,), np.uint32), key_lo=np.zeros((0,), np.uint32),
-                    tags=np.zeros((0, self.tag_schema.num_fields), np.uint32),
-                    meters=np.zeros((0, self.meter_schema.num_fields), np.float32),
-                    count=0, sketches=self._sketch_blocks.pop(w),
-                ))
+                flushed.append(FlushedWindow.sketch_only(
+                    w, w * self.config.interval, self._sketch_blocks.pop(w),
+                    num_tags=self.tag_schema.num_fields,
+                    num_meters=self.meter_schema.num_fields))
         flushed.sort(key=lambda f: f.window_idx)
         if self.cascade is not None:
             # this drain's closed child blocks feed the parent merges
@@ -555,9 +672,11 @@ class WindowManager:
                                                      self.max_held_tier_windows)
         return flushed
 
-    def _split_rows(self, rows: np.ndarray, total: int) -> list[FlushedWindow]:
+    def _split_rows(self, rows: np.ndarray, *, partial: bool = False) -> list[FlushedWindow]:
         """Packed (window, stash position)-ordered rows → per-window
-        FlushedWindows."""
+        FlushedWindows; the flush drain and the live snapshot
+        (partial=True) split alike."""
+        total = rows.shape[0]
         if total == 0:
             return []
         win, key_hi, key_lo, tags, meters = unpack_flush_rows(
@@ -570,7 +689,7 @@ class WindowManager:
             flushed.append(FlushedWindow(
                 window_idx=w, start_time=w * self.config.interval,
                 key_hi=key_hi[a:b], key_lo=key_lo[a:b], tags=tags[a:b],
-                meters=meters[a:b], count=b - a,
+                meters=meters[a:b], count=b - a, partial=partial,
             ))
         return flushed
 
@@ -608,6 +727,30 @@ class WindowManager:
     def _process_stats(self, stats_dev: torch.Tensor) -> None:
         self._process_block([int(v) for v in self._fetch(stats_dev)])
 
+    def _drain_stats_ring(self) -> None:
+        """Fetch the filled prefix of the counter ring in ONE transfer and
+        replay every block in dispatch order: window advances land where
+        per-batch fetching would have put them, discovered (and flushed)
+        at the drain instead of mid-ring."""
+        if self._ring_count == 0:
+            return
+        rows = self._fetch(self._cb_ring[:self._ring_count])
+        self._ring_count = 0
+        for row in rows:
+            self._process_block([int(v) for v in row])
+
+    def _sync_device_sw(self) -> None:
+        """Reset the device gate state to the host span (after flush_all,
+        a checkpoint restore or any external start_window change). Only
+        meaningful with stats_ring > 1; requires a drained ring."""
+        if self._sw_state is None:
+            return
+        if self._ring_count:
+            raise RuntimeError("cannot resync device gate over a filled ring")
+        sw = 0 if self.start_window is None else self.start_window
+        opened = 0 if self.start_window is None else 1
+        self._sw_state = torch.tensor([sw, opened], dtype=torch.int64, device=self.device)
+
     def _process_block(self, vec: list[int]) -> None:
         """One batch's counter block → host counters, open-span advance
         and the (dispatched, not yet fetched) range flush."""
@@ -629,6 +772,10 @@ class WindowManager:
         self.sketch_shed = vec[CB_SKETCH_SHED]
         self.cascade_rows = vec[CB_CASCADE_ROWS]
         self.cascade_shed = vec[CB_CASCADE_SHED]
+        # the live read's lanes as the device carried them at that
+        # dispatch (the host ints stay authoritative)
+        self.device_snapshot_reads = vec[CB_SNAPSHOT_READS]
+        self.device_snapshot_bytes = vec[CB_SNAPSHOT_BYTES]
         self.sketch_pool_spill = vec[CB_SKETCH_POOL_SPILL]
         self.sketch_pool_occ = vec[CB_SKETCH_POOL_OCC]
         self.sketch_promotions = vec[CB_SKETCH_PROMOTIONS]
@@ -693,11 +840,83 @@ class WindowManager:
         out, self.tier_flushed = self.tier_flushed, []
         return out
 
+    # -- live read plane -------------------------------------------------
+    def _snapshot_lanes(self) -> torch.Tensor:
+        """Device [reads, bytes] vector for counter-block lanes 16–17."""
+        return self._snap_lanes_dev
+
+    def snapshot_open(self, *, force: bool = False) -> OpenSnapshot:
+        """Pull a read-only snapshot of the OPEN window span: every stash
+        row with slot ≥ start_window (the accumulator ring is folded in
+        first: device work, no fetch) plus the open sketch slots, in two
+        fetches (the row count, then rows ‖ blocks ‖ window ids). Nothing
+        is closed, so the later flush of these windows emits the same
+        rows plus what arrived after the snapshot: flushed rows supersede
+        a window's snapshot.
+
+        Within `min_snapshot_interval` seconds of the last read the cached
+        OpenSnapshot returns (same `seq`); `force=True` bypasses. Under
+        stash overflow the eager fold can shed at the read instead of at
+        the next fold — counted the same way."""
+        now = time.monotonic()
+        cached = self._snapshot_cache
+        if (not force and cached is not None
+                and now - cached.taken_monotonic < self.config.min_snapshot_interval):
+            return cached
+        snap = self._read_open_snapshot(now)
+        self.snapshot_seq += 1
+        snap.seq = self.snapshot_seq
+        self._snap_lanes_dev = torch.tensor(
+            [self.snapshot_reads & MASK, self.snapshot_bytes & MASK], dtype=torch.int64,
+            device=self.device)
+        self._snapshot_cache = snap
+        return snap
+
+    def _read_open_snapshot(self, now: float) -> OpenSnapshot:
+        if self.start_window is None:
+            self.snapshot_reads += 1
+            return OpenSnapshot(windows=[], taken_monotonic=now)
+        b0, f0 = self.bytes_fetched, self.host_fetches
+        self._fold()  # ring rows → stash (exact; no fetch)
+        packed, total = stash_snapshot_range(self.state, self.start_window, U32_MAX)
+        # the row count travels as 4 bytes, as the reference's does
+        total_i = int(self._fetch(total.to(torch.int32)))
+        row_cols = packed.shape[1]
+        parts = [packed[:total_i].reshape(-1)]
+        if self.sk is not None:
+            blocks = _flatten_open_snapshot(self.sk)
+            parts += [blocks.reshape(-1), to_i32_bits(self.sk.win)]
+        if total_i or self.sk is not None:
+            flat = self._fetch(torch.cat(parts) if len(parts) > 1 else parts[0]
+                               ).view(np.uint32)
+        else:
+            flat = np.zeros((0,), np.uint32)
+        nb = total_i * row_cols
+        windows = self._split_rows(flat[:nb].reshape(total_i, row_cols), partial=True)
+        if self.sk is not None:
+            r, width = blocks.shape
+            block_rows = flat[nb:nb + r * width].reshape(r, width)
+            wins = flat[nb + r * width:]
+            live = wins != np.uint32(SENTINEL_WIN)
+            open_blocks = {blk.window: blk for blk in unpack_drained(
+                block_rows[live], wins[live], self.config.sketch)}
+            windows = attach_open_sketch_blocks(
+                windows, open_blocks, interval=self.config.interval,
+                num_tags=self.tag_schema.num_fields,
+                num_meters=self.meter_schema.num_fields)
+        self.snapshot_reads += 1
+        self.snapshot_bytes += self.bytes_fetched - b0
+        assert self.host_fetches - f0 <= 2, "snapshot must stay a 2-fetch read"
+        return OpenSnapshot(windows=windows, taken_monotonic=now,
+                            open_from=self.start_window * self.config.interval)
+
     # -- ingest ----------------------------------------------------------
     def ingest(self, timestamp, key_hi, key_lo, tags, meters, valid,
                feeder_shed: int = 0) -> list[FlushedWindow]:
         """Merge a raw doc batch (device tensors: u32 lanes, [T, N] tags,
-        [M, N] meters, bool valid); advance and flush closed windows."""
+        [M, N] meters, bool valid); advance and flush closed windows (with
+        async_drain those the previous batch closed; with a counter ring
+        those its drains close)."""
         interval = self.config.interval
 
         def dispatch(acc, offset, start_window):
@@ -705,16 +924,16 @@ class WindowManager:
             if self.sk is not None:
                 return _raw_append_step_sk(
                     acc, offset, start_window, st.valid, st.dropped_overflow,
-                    feeder_shed, self._fold_rows_dev, self._cascade_lanes(), self.sk,
-                    timestamp, key_hi,
-                    key_lo, tags, meters, valid, interval=interval,
-                    delay=self.config.delay, ix=self._sketch_ix,
-                    spec=self.config.sketch.hist,
+                    feeder_shed, self._fold_rows_dev, self._cascade_lanes(),
+                    self._snapshot_lanes(), self.sk, timestamp, key_hi, key_lo, tags,
+                    meters, valid, interval=interval, delay=self.config.delay,
+                    ix=self._sketch_ix, spec=self.config.sketch.hist,
                 )
             return _raw_append_step(
                 acc, offset, start_window, st.valid, st.dropped_overflow,
-                feeder_shed, self._fold_rows_dev, self._cascade_lanes(), timestamp,
-                key_hi, key_lo, tags, meters, valid, interval=interval,
+                feeder_shed, self._fold_rows_dev, self._cascade_lanes(),
+                self._snapshot_lanes(), timestamp, key_hi, key_lo, tags, meters, valid,
+                interval=interval,
             )
 
         return self.ingest_step(dispatch, int(timestamp.shape[0]))
@@ -726,10 +945,18 @@ class WindowManager:
         `dispatch(acc, offset, start_window)` returns (new_acc, counter
         block), plus the updated sketch plane when it is on; `rows` is
         the number of accumulator rows it appends; `ring_rows` (≥ rows)
-        sizes the ring for a larger coming batch."""
+        sizes the ring for a larger coming batch. `start_window` is a
+        host int, or with stats_ring > 1 the device gate (a 0-dim tensor
+        the step must not read back). An empty batch only drains the
+        flushes already dispatched."""
         if rows == 0:
-            return self.settle()
+            return self._settle_ready()
         ready, self._pending_flush = self._pending_flush, []
+        if self._pending_stats is not None:
+            # async: the previous batch's block moves the span BEFORE this
+            # batch's gate, exactly as in sync mode
+            stats, self._pending_stats = self._pending_stats, None
+            self._process_stats(stats)
 
         plan = plan_append(self.fill, self.acc.capacity if self.acc else None, rows)
         if plan == "init":
@@ -744,23 +971,51 @@ class WindowManager:
                                   device=self.device)
         elif plan == "fold":
             self._fold()
-        sw = 0 if self.start_window is None else self.start_window
+        k = self.config.stats_ring
+        if k > 1:
+            # the gate stays on the device between ring drains: the host
+            # span may lag by up to K − 1 batches, the gate never does
+            sw = self._sw_state[0]
+        else:
+            sw = 0 if self.start_window is None else self.start_window
         out = dispatch(self.acc, self.fill, sw)
         if self.sk is not None:
             self.acc, stats_dev, self.sk = out
         else:
             self.acc, stats_dev = out
         self.fill += rows
-        self._process_stats(stats_dev)
+        if k > 1:
+            self._cb_ring, self._sw_state = _stats_ring_push(
+                self._cb_ring, self._ring_count, self._sw_state, stats_dev,
+                interval=self.config.interval, delay=self.config.delay)
+            self._ring_count += 1
+            if self._ring_count >= k:
+                self._drain_stats_ring()
+        elif self.config.async_drain:
+            # defer only this batch's block; the previous batch's flush
+            # (dispatched above, before this append) is fetched below
+            self._pending_stats = stats_dev
+        else:
+            self._process_stats(stats_dev)
         ready.extend(self._pending_flush)
         self._pending_flush = []
         return self._drain_ready(ready)
 
-    def settle(self) -> list[FlushedWindow]:
-        """Fetch every dispatched-but-unfetched flush (sync mode holds
-        none between calls; flush_all relies on this to drain its own)."""
+    def _settle_ready(self) -> list[FlushedWindow]:
+        """Drain the dispatched flushes without appending anything."""
         ready, self._pending_flush = self._pending_flush, []
         return self._drain_ready(ready)
+
+    def settle(self) -> list[FlushedWindow]:
+        """Fetch every deferred buffer — the counter ring's blocks, the
+        pending async block, then the dispatched flushes — so the host
+        counters and span agree with the device. Returns the windows
+        that were in flight (their rows have left the stash)."""
+        self._drain_stats_ring()
+        if self._pending_stats is not None:
+            stats, self._pending_stats = self._pending_stats, None
+            self._process_stats(stats)
+        return self._settle_ready()
 
     def flush_all(self) -> list[FlushedWindow]:
         """Drain every open window (shutdown path); with the cascade on,
@@ -773,9 +1028,13 @@ class WindowManager:
         self.state, packed, total = _flush_range_impl(self.state, 0, hi,
                                                       compact=self._flush_compact)
         self._pending_flush.append(self._make_flush_entry(packed, total, 0, hi))
-        flushed += self.settle()
+        flushed += self._settle_ready()
         for f in flushed:
             self.start_window = max(self.start_window, f.window_idx + 1)
+        # the host span jumped past every drained window: the device gate
+        # follows, or a straggler would re-open an emitted window (the
+        # ring was drained by settle() above)
+        self._sync_device_sw()
         return flushed
 
     def get_counters(self) -> dict:
@@ -796,6 +1055,9 @@ class WindowManager:
             "bytes_fetched": self.bytes_fetched,
             "bytes_uploaded": self.bytes_uploaded,
             "feeder_shed": self.feeder_shed,
+            # counter-ring blocks awaiting the 1/K fetch: host counters may
+            # trail the device by that many batches
+            "stats_ring_pending": self._ring_count,
             # sketch plane (CB lanes as of the last fetched block)
             "sketch_rows": self.sketch_rows,
             "sketch_shed": self.sketch_shed,
@@ -808,6 +1070,12 @@ class WindowManager:
             "cascade_shed": self.cascade_shed,
             "tier_windows_held": len(self.tier_flushed),
             "tier_windows_dropped": self.tier_windows_dropped,
+            # live read plane: host-authoritative, and the device lanes as
+            # of the last fetched block
+            "snapshot_reads": self.snapshot_reads,
+            "snapshot_bytes": self.snapshot_bytes,
+            "device_snapshot_reads": self.device_snapshot_reads,
+            "device_snapshot_bytes": self.device_snapshot_bytes,
             **(self.cascade.get_counters() if self.cascade is not None else {}),
         }
 

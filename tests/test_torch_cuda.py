@@ -368,3 +368,141 @@ def test_tier_step_card_matches_cpu(cuda, branch):
     assert torch.equal(c_acc.slot.cpu(), h_acc.slot)
     assert int(c_fill) == int(h_fill) and torch.equal(c_lanes.cpu(), h_lanes)
     assert int(h_lanes[0]) > 7
+
+
+@pytest.mark.cuda
+def test_stats_ring_push_card_matches_cpu(cuda):
+    """Ten pushes round a K = 4 counter ring on the card and the CPU:
+    every ring row and the device gate equal, with blocks whose t_max is
+    below the delay, whose n_valid is 0, and whose t_max is near 2^32."""
+    from deepflow_tpu_torch.aggregator import window
+
+    rng = np.random.default_rng(70)
+    blocks = rng.integers(0, 2 ** 32, (10, window.CB_LEN), dtype=np.uint64).astype(np.int64)
+    blocks[:, window.CB_T_MAX] = [1, 2, 1_700_000_003, 1_700_000_001, 1_700_000_009,
+                                  2 ** 32 - 1, 2 ** 32 - 3, 5, 1_700_000_020, 0]
+    blocks[[1, 4, 9], window.CB_N_VALID] = 0
+    out = {}
+    for d in ("cpu", cuda):
+        ring = torch.zeros((4, window.CB_LEN), dtype=torch.int64, device=d)
+        sw = torch.tensor([1_700_000_000, 1], device=d)
+        gates = []
+        for i, b in enumerate(blocks):
+            ring, sw = window._stats_ring_push(ring, i % 4, sw, torch.from_numpy(b).to(d),
+                                               interval=1, delay=2)
+            gates.append(sw.cpu())
+        out[d] = (ring.cpu(), torch.stack(gates))
+    torch.cuda.synchronize()
+    assert torch.equal(out["cpu"][0], out[cuda][0]) and torch.equal(out["cpu"][1], out[cuda][1])
+    assert int(out[cuda][1][-1, 0]) == 2 ** 32 - 3
+
+
+def _doc_stream(seed, seconds, n=256, keys=400):
+    """Raw doc batches (numpy: ts, hi, lo, [T, n] tags, [M, n] meters,
+    valid) for WindowManager.ingest: each batch's keys are distinct, and
+    no second gets more than two batches, so a key's meters sum at most
+    two rows (exact in any order); latencies sit at bin centres of the
+    histogram below, so the card's logf cannot move a bin."""
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for dt in seconds:
+        k = rng.permutation(keys)[:n].astype(np.int64)
+        tags = np.zeros((TAG_SCHEMA.num_fields, n), np.int64)
+        tags[TAG_SCHEMA.index("ip0_w3")] = k
+        tags[TAG_SCHEMA.index("server_port")] = 443
+        tags[TAG_SCHEMA.index("protocol")] = 6
+        tags[TAG_SCHEMA.index("l3_epc_id1")] = k % 5
+        meters = np.zeros((FLOW_METER.num_fields, n), np.float32)
+        meters[FLOW_METER.index("byte_tx")] = rng.integers(1, 900, n)
+        meters[FLOW_METER.index("rtt_sum")] = 1.2 ** (rng.integers(0, 64, n) + 0.5)
+        meters[FLOW_METER.index("rtt_count")] = 1.0
+        out.append((np.full(n, 1_700_000_000 + dt), (k * 2654435761 + 1) % 2 ** 32,
+                    k ^ 0x9E3779B9, tags, meters, rng.random(n) > 0.05))
+    return out
+
+
+def _plane_config(pool: bool):
+    from deepflow_tpu_torch.aggregator import sketchplane as sp
+    from deepflow_tpu_torch.ops.histogram import LogHistSpec
+
+    return sp.SketchConfig(num_groups=4, hll_precision=8, cms_depth=3, cms_width=512,
+                           hist=LogHistSpec(bins=64, vmin=1.0, gamma=1.2), topk_rows=2,
+                           topk_cols=128, pending=10,
+                           pool=sp.PoolConfig(cms_factor=16) if pool else None)
+
+
+def _window_sig(f):
+    blk = f.sketches
+    lanes = () if blk is None else (blk.window, blk.n_updates) + tuple(
+        getattr(blk, k).tobytes() for k in ("hll", "cms", "hist", "tk_votes", "tk_hi",
+                                            "tk_lo", "tk_ida", "tk_idb"))
+    return (f.window_idx, f.count, f.partial, f.key_hi.tobytes(), f.key_lo.tobytes(),
+            f.tags.tobytes(), f.meters.tobytes(), lanes)
+
+
+def _manager_run(dev, batches, *, snapshots=False, pool=False, **wkw):
+    """One WindowManager (slab or pooled sketch plane) over `batches`
+    on `dev`: per ingest call the windows it returned (and, with
+    `snapshots`, a forced snapshot's windows and the ring slots' pool
+    sides), then flush_all's; every counter block."""
+    from deepflow_tpu_torch.aggregator import window
+
+    wm = window.WindowManager(window.WindowConfig(
+        capacity=1 << 12, sketch=_plane_config(pool), min_snapshot_interval=0.0, **wkw),
+        device=dev)
+    blocks, process = [], wm._process_block
+    wm._process_block = lambda vec: (blocks.append(list(vec)), process(vec))
+    calls, snaps, sides = [], [], set()
+    for ts, hi, lo, tags, meters, valid in batches:
+        t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
+        calls.append([_window_sig(f) for f in wm.ingest(t(ts), t(hi), t(lo), t(tags),
+                                                        t(meters), t(valid))])
+        if snapshots:
+            snaps.append([_window_sig(f) for f in wm.snapshot_open(force=True).windows])
+            pc = wm.sk.p_hll.shape[0]
+            sides |= {"wide" if s >= pc else "compact" for s in wm.sk.slot_of.tolist()
+                      if s >= 0}
+    calls.append([_window_sig(f) for f in wm.flush_all()])
+    return calls, snaps, sides, blocks, wm.get_counters()
+
+
+_SECONDS = [0, 0, 1, 3, 4, 4, 5, 7, 8, 8, 9, 12]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [dict(stats_ring=4), dict(async_drain=True)],
+                         ids=["stats_ring", "async"])
+def test_ring_and_async_manager_card_matches_cpu(cuda, extra):
+    """A K = 4 counter ring and async_drain with the slab plane and the
+    full fold: each ingest call returns the same windows (rows, sketch
+    blocks) on the card as on the CPU, every replayed counter block and
+    the counters are equal, and the card launched both kernels."""
+    from deepflow_tpu_torch.ops import segreduce
+
+    batches = _doc_stream(71, _SECONDS)
+    segreduce.reset_launch_counts()
+    sketch_fused.reset_launch_counts()
+    card = _manager_run(cuda, batches, **extra)
+    assert segreduce.LAUNCHES["segreduce_gather"] > 0 and sketch_fused.LAUNCHES["sketch_fused"] > 0
+    host = _manager_run("cpu", batches, **extra)
+    assert card[0] == host[0] and sum(map(len, card[0])) > 0
+    assert card[3] == host[3] and card[4] == host[4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [False, True], ids=["slab", "pool"])
+def test_snapshot_card_matches_cpu(cuda, pool):
+    """A forced snapshot after every ingest (K = 4 ring; the merge fold
+    with the pool): the card's snapshot windows, their open sketch blocks
+    and the flushed windows equal the CPU's; the pool's snapshots read
+    compact and, after the promotion, wide slots."""
+    batches = _doc_stream(72, _SECONDS)
+    kw = dict(snapshots=True, pool=pool, stats_ring=4, fold_mode="merge" if pool else "full")
+    card, host = _manager_run(cuda, batches, **kw), _manager_run("cpu", batches, **kw)
+    assert card[1] == host[1] and sum(map(len, card[1])) > 0
+    assert card[0] == host[0] and card[3] == host[3] and card[4] == host[4]
+    assert card[4]["snapshot_reads"] == len(batches)
+    if pool:
+        assert card[2] == {"compact", "wide"}

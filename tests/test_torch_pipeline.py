@@ -297,10 +297,11 @@ def test_entry_points_default_to_cuda():
                                 dict(async_drain=True)],
                          ids=["sketch", "cascade", "merge", "stats_ring", "async"])
 def test_unported_window_options_raise(kw):
-    """The counter ring and async_drain are not ported and raise; pooled
-    sketch memory, the merge fold and the cascade are, and build (a pool
-    that is no PoolConfig, or a cascade that is no port CascadeConfig, is
-    a type error)."""
+    """Every window option is ported and builds; each rejects what the
+    reference rejects: a pool that is no PoolConfig or a cascade that is
+    no port CascadeConfig (TypeError), an unknown fold mode, a counter
+    ring below 1 and a counter ring together with async_drain (the
+    reference WindowManager's two ValueErrors)."""
     from deepflow_tpu_torch.aggregator.cascade import CascadeConfig
     from deepflow_tpu_torch.aggregator.sketchplane import PoolConfig, SketchConfig
 
@@ -317,6 +318,12 @@ def test_unported_window_options_raise(kw):
             WindowConfig(**kw)
         assert WindowConfig(cascade=CascadeConfig(intervals=(60, 3600))).cascade.intervals \
             == (60, 3600)
+    elif "stats_ring" in kw:
+        assert window.WindowManager(WindowConfig(**kw), device="cpu").get_counters()[
+            "stats_ring_pending"] == 0
+        with pytest.raises(ValueError, match="stats_ring must be >= 1"):
+            window.WindowManager(WindowConfig(stats_ring=0), device="cpu")
     else:
-        with pytest.raises(NotImplementedError):
-            WindowConfig(**kw)
+        assert window.WindowManager(WindowConfig(**kw), device="cpu").config.async_drain
+        with pytest.raises(ValueError, match="pick one"):
+            window.WindowManager(WindowConfig(stats_ring=2, **kw), device="cpu")
