@@ -99,6 +99,33 @@ loudly with a nonzero exit:
    snapshot before the drain equals the drained rows (and closed sketch
    blocks) of each window it holds; the pooled run's snapshots read
    compact slots and a promoted wide slot.
+3i. The checkpoint round trip at the 3f widths, counts zeroed before and
+   read after: the 3f stream saved after T0+40 (mid-minute; the save
+   folds the tier rings) with the v6 writer and loaded into a fresh
+   L4Pipeline on the card, then finished and drained. Its 1 s and tier
+   DocBatches (meter bits included), sketch blocks, tier sketch blocks,
+   counters and cascade lanes equal 3f's uninterrupted run. Both kernels launch after the load, and on the restored state — the
+   fold of its stash and ring, its sketch plane with the next batch —
+   each is held against its plain version once more (uncounted). Printed:
+   the file's raw and on-disk bytes, and the wall of the save (the
+   settled payload's device→host copies; the atomic write) and of the
+   load (read + digest check; the restore's upload), with the sha256
+   and zlib shares timed again on the same arrays.
+3j. Kill and recover through PyOverwriteQueue → FeederRuntime (with a
+   FrameJournal) → PipelineFeedSink → L4Pipeline on the card, counts
+   zeroed before and read after: the schedule of tests/test_recovery.py
+   (capacity 2^12, buckets 64/128/256) uninterrupted — equal to the CPU
+   run, seam for seam — and killed at its four kill-points (dispatch 2,
+   fetch 5, dispatch 3, dispatch 4), each landing on the reference's step
+   and recovered from checkpoint + journal alone bit-exact, outputs and
+   counters; then at the 3f widths with 2^18-row buckets (2^21-row
+   seconds in 1024 frames of 2048 rows): seconds T0+34, T0+35, a
+   checkpoint, T0+36, T0+37 and a drain, killed at the first flush-row
+   fetch after the checkpoint (found in the uninterrupted run) and
+   recovered bit-exact, with the time to recover (load + replay_journal
+   + the tail pump, synchronised wall) and the journal's bytes per
+   record. Journals and checkpoints live in a temporary directory that
+   is deleted.
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
@@ -112,7 +139,11 @@ loudly with a nonzero exit:
    windows, tier sketch blocks, cascade lanes and counters exact; then
    (4e) a K = 4 ring with a snapshot after every second ingest, slab +
    full fold and pool + merge fold — windows, sketch blocks and every
-   snapshot's windows and open blocks equal — and async_drain once.
+   snapshot's windows and open blocks equal — and async_drain once;
+   then (4f) 4d's slab stream saved after T0+40 on the card and resumed
+   on the CPU, and the other way round: both files have one digest, the
+   two resumed streams are equal, and each equals 4d's uninterrupted CPU
+   run.
 5. One JSON line of each cycle's records/s (with its device idle share
    and kernel launches, and the launches of one fold alone in each fold
    mode), then one of the kernels (with the card's name and power limit;
@@ -227,19 +258,22 @@ def _dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
 
 
-def device_time(fn, match) -> tuple[float, float]:
+def device_time(fn, match, launches_per_call: int | None = None) -> tuple[float, float]:
     """Device time per call of the CUDA kernels whose name holds `match`
     (a string, or None for every kernel the call launches), from
     torch.profiler over REPS calls after a warmup — without the host work
     that an event pair around the call encloses — and their launches per
-    call."""
+    call. With `launches_per_call` (what the wrapper's counter says a call
+    launches), a session whose trace holds another count is taken again:
+    the profiler on the card has dropped kernel records (0.55 and 0.95 of
+    the one launch a call in two sessions)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # one more session if the first saw no device time: once, the first
-    # session of a process on the card recorded no kernel at all
-    for _ in range(2):
+    # sessions are taken again while the trace is incomplete: once, the
+    # first session of a process on the card recorded no kernel at all
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(REPS):
                 fn()
@@ -247,7 +281,9 @@ def device_time(fn, match) -> tuple[float, float]:
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and (match is None or match in e.key)]
-        if events and sum(_dev_us(e) for e in events) > 0:
+        complete = (launches_per_call is None
+                    or sum(e.count for e in events) == launches_per_call * REPS)
+        if events and sum(_dev_us(e) for e in events) > 0 and complete:
             break
     check(events and sum(_dev_us(e) for e in events) > 0,
           f"the profiler saw no device time for {match}")
@@ -382,11 +418,11 @@ def tier_merge_operands(dev):
         return fold_operands(tier, *cascade.merge_row_lanes(acc, cols))
 
 
-def kernel_parity(name: str, ops: dict) -> dict:
-    """One launcher at one shape: parity with the plain version, the
-    call time (CUDA events around the wrapper), the kernel's device time
-    (profiler), the library time, and the bytes/operations bound of this
-    input."""
+def kernel_parity(name: str, ops: dict, *, timed: bool = True) -> dict:
+    """One launcher at one shape: parity with the plain version, and
+    (`timed`) the call time (CUDA events around the wrapper), the
+    kernel's device time (profiler), the library time, and the
+    bytes/operations bound of this input."""
     from deepflow_tpu_torch.ops.segreduce import (
         sorted_segment_sum_max, sorted_segment_sum_max_plain,
     )
@@ -409,6 +445,10 @@ def kernel_parity(name: str, ops: dict) -> dict:
     check(finite, f"{name}: non-finite kernel output")
     check(sum_ok, f"{name}: SUM lanes off by more than rtol {SUM_RTOL}")
     check(max_ok, f"{name}: MAX lanes differ")
+    max_abs_err = float(max(sum_err.max(), (km - pm).abs().max()))
+    if not timed:
+        return {"parity_ok": finite and sum_ok and max_ok, "max_abs_err": max_abs_err,
+                "rows": int(seg.shape[0]), "live_segments": live}
 
     # the library's segmented reduce over the pre-sorted live rows: two
     # calls (sum, max), plus the index_select that sorts them for the
@@ -440,11 +480,10 @@ def kernel_parity(name: str, ops: dict) -> dict:
     def call():
         return sorted_segment_sum_max(rows, seg, cap, fp, perm=perm)
 
-    dev_ms, dev_launches = device_time(call, "segreduce")
+    dev_ms, dev_launches = device_time(call, "segreduce", launches_per_call=1)
     check(dev_launches == 1, f"{name}: {dev_launches} device launches per call")
     return {
-        "parity_ok": finite and sum_ok and max_ok,
-        "max_abs_err": float(max(sum_err.max(), (km - pm).abs().max())),
+        "parity_ok": finite and sum_ok and max_ok, "max_abs_err": max_abs_err,
         "ms": time_ms(call), "device_ms": dev_ms,
         "plain_ms": time_ms(
             lambda: sorted_segment_sum_max_plain(rows, seg, cap, fp, perm=perm)),
@@ -458,11 +497,13 @@ def kernel_parity(name: str, ops: dict) -> dict:
     }
 
 
-def sketch_operands(dev):
+def sketch_operands(dev, sk=None, fb=None, sw: int | None = None):
     """(cfg, plane, keywords) of the fused sketch update at the main-path
     shape: the phase-c operands of a bench.py batch against a plane that
     already holds one of another flow population (so registers rise and
-    top-K buckets are contested), built with the port's own functions."""
+    top-K buckets are contested), built with the port's own functions.
+    With `sk`, `fb` and `sw`: the operands of host batch `fb` against
+    plane `sk` behind the gate `sw` (a restored manager's next batch)."""
     from deepflow_tpu_torch.aggregator import sketchplane as sp
     from deepflow_tpu_torch.aggregator.pipeline import batch_prereduce, upload_flow_batch
     from deepflow_tpu_torch.aggregator.stash import sum_max_cols
@@ -474,11 +515,10 @@ def sketch_operands(dev):
 
     cfg = sketch_config()
     sum_cols, max_cols = sum_max_cols(FLOW_METER)
-    sw = T0 - DELAY
+    sw = T0 - DELAY if sw is None else sw
 
-    def plane_batch(seed):
-        gen = SyntheticFlowGen(num_tuples=10_000, seed=seed)
-        tags, meters, valid = upload_flow_batch(gen.flow_batch(BATCH, T0), dev)
+    def plane_batch(batch):
+        tags, meters, valid = upload_flow_batch(batch, dev)
         tags, meters, valid, _ = batch_prereduce(tags, meters, valid, 1, UNIQUE_CAP,
                                                  sum_cols, max_cols)
         inp = sketch_inputs_from_columns(tags, meters, cfg.num_groups, FLOW_METER.index)
@@ -486,19 +526,25 @@ def sketch_operands(dev):
         base_w, close_w = sketch_span_bounds(sw, ts, valid, interval=1, delay=DELAY)
         return dict(window=ts, valid=valid, base_w=base_w, close_w=close_w, **inp)
 
-    sk = sp.sketch_init(cfg, RING, device=dev)
-    sk = sp.sketch_plane_step(sk, cfg.hist, **plane_batch(1))  # the plane holds a batch
-    x = plane_batch(0)
+    if sk is None:
+        def bench_batch(seed):
+            return SyntheticFlowGen(num_tuples=10_000, seed=seed).flow_batch(BATCH, T0)
+
+        sk = sp.sketch_init(cfg, RING, device=dev)
+        # the plane holds a batch
+        sk = sp.sketch_plane_step(sk, cfg.hist, **plane_batch(bench_batch(1)))
+        fb = bench_batch(0)
+    x = plane_batch(fb)
     _, in_c, _ = sp.phase_masks(sk, window=x["window"], valid=x["valid"],
                                 base_w=x["base_w"], close_w=x["close_w"])
     presorted = sp.shared_sort(x["window"], x["key_hi"], x["key_lo"])
     return cfg, sk, sp.fused_operands(sk, in_c, presorted=presorted, **x)
 
 
-def sketch_kernel_parity(dev) -> dict:
-    """The fused sketch update at the main-path shape (`sketch_operands`),
-    kernel vs plain on clones, exact; times and the bytes bound of this
-    input."""
+def sketch_kernel_parity(dev, *, timed: bool = True, **operands) -> dict:
+    """The fused sketch update at the main-path shape (`sketch_operands`,
+    which takes `operands`), kernel vs plain on clones, exact; with
+    `timed`, times and the bytes bound of this input."""
     from deepflow_tpu_torch.aggregator import sketchplane as sp
     from deepflow_tpu_torch.ops.cms import row_slots
     from deepflow_tpu_torch.ops.sketch_fused import (
@@ -506,7 +552,7 @@ def sketch_kernel_parity(dev) -> dict:
     )
     from deepflow_tpu_torch.ops.topk import _apply_challengers
 
-    cfg, sk, kw = sketch_operands(dev)
+    cfg, sk, kw = sketch_operands(dev, **operands)
     n = int(kw["s_pos"].shape[0])
     s_mask = kw["mask"][kw["s_pos"]]
     live = int(s_mask.sum())
@@ -540,6 +586,9 @@ def sketch_kernel_parity(dev) -> dict:
         for a, b in zip(k_lanes, p_lanes):
             check(same(a[kg], b[kg]), "sketch_fused: challenger key/id lanes differ")
         hit += int(kg.sum())
+    if not timed:
+        return {"parity_ok": max(errs) == 0, "max_abs_err": float(max(errs)), "rows": n,
+                "live_rows": live, "buckets_hit": hit}
 
     h, c = sk.hll.clone(), sk.cms.clone()
 
@@ -549,7 +598,7 @@ def sketch_kernel_parity(dev) -> dict:
     def plain():
         return sketch_update_fused_plain(h, c, **kw)
 
-    dev_ms, dev_launches = device_time(call, "sketch_fused_kernel")
+    dev_ms, dev_launches = device_time(call, "sketch_fused_kernel", launches_per_call=1)
     check(dev_launches == 1, f"sketch_fused: {dev_launches} device launches per call")
 
     # bytes this input needs, at the reference kernel's 4-byte u32/i32
@@ -693,7 +742,8 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
                     fold_mode: str = "full", *, cascade=None, capacity: int = STASH_CAPACITY,
                     tuples: int = 10_000, seed: int = 1, profile_his=(),
                     capture_his=(), profile_dt: int | None = None, window_kw=None,
-                    snapshot_every: int | None = None) -> dict:
+                    snapshot_every: int | None = None, save_after: int | None = None,
+                    load_device=None, ckpt_dir: str | None = None, on_resume=None) -> dict:
     """L4Pipeline over one SyntheticFlowGen stream (sketch plane on with
     `sketch`, the fold of `fold_mode`, the rollup cascade with
     `cascade`): the windows closed before the drain, all DocBatches, the
@@ -705,7 +755,13 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
     `profile_dt`, that second's ingest runs under `profile_cycle`.
     `window_kw` adds WindowConfig fields (stats_ring, async_drain); with
     `snapshot_every`, a forced snapshot follows every that many ingests
-    (returned under "snapshots")."""
+    (returned under "snapshots"). With `save_after`, the state is saved
+    into `ckpt_dir` after that second's ingest and the stream goes on in a
+    fresh pipeline on `load_device` that loaded it (`save_and_resume`;
+    its measurements under "checkpoint"; the counter blocks and advances
+    of both managers are recorded); `on_resume(pipe, fb)` runs on the
+    resumed pipeline and its first batch before that is ingested (its
+    result under "checkpoint", "restored")."""
     from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
     from deepflow_tpu_torch.aggregator.window import WindowConfig
     from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
@@ -718,22 +774,29 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
                             cascade=cascade, **(window_kw or {})),
         batch_size=batch, batch_unique_cap=min(UNIQUE_CAP, batch),
     ), device=device)
-    blocks, snapshots = [], []
-    process = pipe.wm._process_block
+    blocks, snapshots, advances = [], [], []
 
-    def record(vec):
-        blocks.append(list(vec))
-        process(vec)
+    def instrument(wm):
+        process = wm._process_block
 
-    pipe.wm._process_block = record
-    advances = (record_advances(pipe.wm, profile_his, capture_his)
-                if cascade is not None else [])
+        def record(vec):
+            blocks.append(list(vec))
+            process(vec)
+
+        wm._process_block = record
+        if cascade is not None:
+            record_advances(wm, profile_his, capture_his, out=advances)
+
+    instrument(pipe.wm)
+    saved = None
     gen = SyntheticFlowGen(num_tuples=tuples, seed=seed)
     ingest_profile = None
     t_start = time.perf_counter()
     docs, fetches, words, tiers = [], [], {}, []
     for dt in seconds:
         fb = gen.flow_batch(batch, T0 + dt)
+        if on_resume is not None and saved is not None and "restored" not in saved:
+            saved["restored"] = on_resume(pipe, fb)
         words.setdefault(T0 + dt, []).append(unique_pairs(
             *(fb.tags[f"ip0_w{w}"][fb.valid] for w in range(4))))
         before = pipe.wm.host_fetches
@@ -745,6 +808,10 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
         tiers += pipe.pop_tier_docbatches()
         if snapshot_every and len(fetches) % snapshot_every == 0:
             snapshots.append(pipe.snapshot_open(force=True))
+        if dt == save_after:
+            pipe, saved = save_and_resume(pipe, os.path.join(ckpt_dir, "wm.ckpt"),
+                                          load_device)
+            instrument(pipe.wm)
     closed_before_drain = len(docs)
     docs += pipe.drain()
     tiers += pipe.pop_tier_docbatches()
@@ -764,6 +831,7 @@ def pipeline_stream(device, batch: int, seconds: list[int], sketch=None,
             "tiers": tiers, "tier_sketches": pipe.closed_tier_sketches,
             "tier_sketch_blocks_dropped": held.get("tier_sketch_blocks_dropped"),
             "advances": advances, "ingest_profile": ingest_profile, "snapshots": snapshots,
+            "checkpoint": saved,
             "cascade_lanes": (None if cascade is None
                               else [int(v) for v in pipe.wm.cascade.lanes_dev.tolist()])}
 
@@ -791,14 +859,15 @@ def _clone(x):
     return type(x)(**{f.name: getattr(x, f.name).clone() for f in dataclasses.fields(x)})
 
 
-def record_advances(wm, profile_his=(), capture_his=()) -> list:
+def record_advances(wm, profile_his=(), capture_his=(), out: list | None = None) -> list:
     """Wrap the cascade's on_advance. Per call: tier 0's `hi`, the flush
     row count and tier 0's fill cursor before the step (device handles,
     read after the run), the prefix and ring sizes, the tier flushes and
     the segreduce launches the call made. At each `hi` in profile_his
     the call runs under torch.profiler and its device copies are counted
     by direction; at each `hi` in capture_his tier 0's inputs are cloned
-    for the timings of `cascade_timings`."""
+    for the timings of `cascade_timings`. The records go to `out` (a new
+    list by default), which is returned."""
     from torch.profiler import ProfilerActivity, profile
 
     from deepflow_tpu_torch.aggregator import cascade
@@ -806,7 +875,7 @@ def record_advances(wm, profile_his=(), capture_his=()) -> list:
 
     casc = wm.cascade
     real = casc.on_advance
-    out = []
+    out = [] if out is None else out
 
     def on_advance(packed, total, hi):
         rows = packed.shape[0]
@@ -1300,6 +1369,421 @@ def check_live_read(oracle: dict, run: dict) -> None:
                   f"window {w.window_idx}: the open block differs from the closed one")
 
 
+def save_and_resume(pipe, path: str, load_device):
+    """Save `pipe`'s window state to `path` as save_window_state does
+    (the settled payload, then the atomic digested write) and load it into
+    a fresh L4Pipeline on `load_device` as load_window_state does (read +
+    digest check, then the restore), each piece timed on the host clock
+    around synchronised work; the digest's and the npz deflate's shares
+    are timed once more on the same arrays. The closed sketch blocks the
+    old pipeline held move to the new one (their caller owns them).
+    Returns (new pipeline, measurements)."""
+    import io
+
+    from deepflow_tpu_torch.aggregator import checkpoint as ckpt
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    (in_flight, meta, arrays), fetch_s = timed(lambda: ckpt._window_payload(pipe.wm))
+    check(not in_flight, f"{len(in_flight)} windows in flight at a per-batch save")
+    _, write_s = timed(lambda: ckpt._write_checkpoint(path, meta, arrays))
+    digest, sha_s = timed(lambda: ckpt._digest(arrays))
+    _, zlib_s = timed(lambda: np.savez_compressed(io.BytesIO(), **arrays))
+    (meta2, arrays2), read_s = timed(lambda: ckpt._read_checkpoint(path))
+    check(meta2["digest"] == digest, "the saved digest is not the payload's")
+    new = L4Pipeline(pipe.config, device=load_device)
+    new.wm, restore_s = timed(lambda: ckpt._restore_window(
+        meta2, arrays2, path, TAG_SCHEMA, FLOW_METER, sketch_config=None,
+        cascade_config=None, device=new.device))
+    _, load_sha_s = timed(lambda: ckpt._digest(arrays2))
+    new.closed_sketches, new.closed_tier_sketches = (pipe.closed_sketches,
+                                                     pipe.closed_tier_sketches)
+    return new, {
+        "digest": digest, "raw_bytes": sum(a.nbytes for a in arrays.values()),
+        "disk_bytes": os.path.getsize(path), "arrays": len(arrays),
+        "array_bytes": {k: a.nbytes for k, a in arrays.items() if a.nbytes >= 1 << 20},
+        "save_s": fetch_s + write_s, "save_fetch_s": fetch_s, "save_write_s": write_s,
+        "save_sha256_s": sha_s, "save_zlib_s": zlib_s,
+        "load_s": read_s + restore_s, "load_read_s": read_s, "load_sha256_s": load_sha_s,
+        "load_restore_s": restore_s,
+    }
+
+
+RESUME_COUNTERS = STREAM_COUNTERS + ("cascade_rows", "cascade_shed", "cascade_tier_windows",
+                                     "tier_windows_held", "tier_windows_dropped")
+
+
+def check_resumed(run: dict, oracle: dict) -> None:
+    """A stream saved and resumed midway against the same stream without
+    the save: 1 s and tier DocBatches (meter bits included), the counters
+    and the cascade lanes equal. The callers compare the sketch blocks."""
+    check(same_docs(run["docs"], oracle["docs"]), "resumed 1 s windows differ")
+    check(len(run["tiers"]) == len(oracle["tiers"]) > 0 and all(
+        ia == ib and same_docs([a], [b]) for (ia, a), (ib, b) in zip(run["tiers"], oracle["tiers"])),
+        "resumed tier windows differ")
+    for k in RESUME_COUNTERS:
+        check(run["counters"].get(k) == oracle["counters"].get(k), f"resumed counter {k}")
+    check(run["cascade_lanes"] == oracle["cascade_lanes"], "resumed cascade lanes differ")
+
+
+def restored_parity(pipe, fb) -> dict:
+    """Both kernels held against their plain versions once more on what a
+    restored manager feeds them: the segmented reduce at the fold of its
+    restored stash and accumulator ring, the fused sketch update at its
+    restored plane with the next batch."""
+    from deepflow_tpu_torch.aggregator.stash import fold_operands
+    from deepflow_tpu_torch.ops.segment import SENTINEL_SLOT, segment_ids, sort_keys
+
+    wm = pipe.wm
+    f_slot, f_hi, f_lo, _, f_rows, f_valid = fold_operands(
+        wm.state, wm.acc.slot, wm.acc.key_hi, wm.acc.key_lo, wm.acc.tags, wm.acc.meters,
+        wm.acc.slot != SENTINEL_SLOT)
+    s_slot, s_hi, s_lo, perm = sort_keys(f_slot, f_hi, f_lo, f_valid)
+    cap = wm.state.capacity
+    seg, first_pos, num_seg = segment_ids(s_slot, s_hi, s_lo, cap)
+    ops = dict(rows=f_rows, seg=seg, first_pos=first_pos, perm=perm.to(torch.int32), cap=cap,
+               live=min(int(num_seg), cap), live_rows=int((seg < cap).sum()))
+    return {"segreduce_gather": kernel_parity("segreduce_gather", ops, timed=False),
+            "sketch_fused": sketch_kernel_parity(wm.device, timed=False, sk=wm.sk, fb=fb,
+                                                 sw=wm.start_window)}
+
+
+# the kill-and-recover schedule of tests/test_recovery.py:44 (test size)
+# and its kill matrix (:275): the seam, its call index and the step the
+# kill lands on
+RECOVERY_STEPS = (("batch", T0, 100), ("batch", T0 + 1, 120), ("ckpt",),
+                  ("batch", T0 + 5, 90), ("batch", T0 + 6, 110), ("ckpt",),
+                  ("batch", T0 + 7, 80), ("batch", T0 + 10, 100), ("drain",))
+FULL_BUCKET = 1 << 18  # phase 3j: the full-width feeder's shape bucket
+RECOVERY_KILLS = {"pre_advance": ("device.dispatch", 2, 4), "mid_flush": ("host.fetch", 5, 4),
+                  "during_ckpt": ("device.dispatch", 3, 5), "post_ckpt": ("device.dispatch", 4, 7)}
+# full width: seconds of the 3f stream (2^21 rows, 1024 frames of 2048
+# rows each) through 2^18-row buckets; the first window advance that
+# flushes rows (T0+37's dispatches close T0+34) follows the checkpoint
+FULL_RECOVERY_STEPS = (("batch", T0 + 34, BATCH), ("batch", T0 + 35, BATCH), ("ckpt",),
+                       ("batch", T0 + 36, BATCH), ("batch", T0 + 37, BATCH), ("drain",))
+
+
+class FeederStack:
+    """L4Pipeline behind PyOverwriteQueue → FeederRuntime (with a
+    FrameJournal) → PipelineFeedSink, as a deployment runs it; its
+    checkpoint is `save_window_state` into `d`."""
+
+    def __init__(self, dev, d: str, jname: str, config, *, frames_per_queue: int,
+                 journal_bytes: int):
+        from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline
+        from deepflow_tpu_torch.feeder import (FeederConfig, FeederRuntime, FrameJournal,
+                                               PipelineFeedSink)
+        from deepflow_tpu_torch.ingest.queues import PyOverwriteQueue
+
+        self.pipe = L4Pipeline(config, device=dev)
+        self.q = PyOverwriteQueue(4 * frames_per_queue)
+        self.journal = os.path.join(d, jname)
+        self.feeder = FeederRuntime(
+            [self.q], PipelineFeedSink(self.pipe),
+            FeederConfig(frames_per_queue=frames_per_queue, rounds_per_pump=1),
+            journal=FrameJournal(self.journal, max_bytes=journal_bytes))
+        self.ckpt = os.path.join(d, "wm.ckpt")
+        self.out = {"docs": [], "tiers": [], "blocks": []}
+        self.durable = {k: 0 for k in self.out}
+        self.step = None
+
+    def save(self, barrier):
+        from deepflow_tpu_torch.aggregator.checkpoint import save_window_state
+
+        in_flight = save_window_state(self.pipe.wm, self.ckpt, extra_meta=barrier)
+        return self.pipe._convert_flushed(in_flight)
+
+    def collect(self, docs: list) -> None:
+        self.out["docs"] += docs
+        self.out["tiers"] += self.pipe.pop_tier_docbatches()
+        self.out["blocks"] += self.pipe.pop_closed_sketches()
+
+    def run(self, steps, frames, start: int = 0) -> None:
+        """steps[start:]; every barrier (checkpoint, drain) marks the
+        outputs so far durable; `step` is the step running."""
+        for i in range(start, len(steps)):
+            self.step = i
+            kind = steps[i][0]
+            if kind == "batch":
+                for fr in frames[i]:
+                    self.q.put(fr)
+                self.collect(self.feeder.pump())
+                continue
+            if kind == "ckpt":
+                self.collect(self.feeder.checkpoint(self.save))
+            else:
+                self.collect(self.feeder.flush() + self.pipe.drain())
+            self.durable = {k: len(v) for k, v in self.out.items()}
+
+    def counters(self) -> dict:
+        c = self.pipe.get_counters()
+        return {k: c[k] for k in ("doc_in", "flushed_doc", "drop_before_window",
+                                  "prereduce_shed", "excess_word_hits", "stash_evictions",
+                                  "window_advances", "feeder_shed", "sketch_rows",
+                                  "cascade_rows")
+                if k in c}
+
+
+def same_stream(a: dict, b: dict) -> bool:
+    return (same_docs(a["docs"], b["docs"]) and same_blocks(a["blocks"], b["blocks"])
+            and len(a["tiers"]) == len(b["tiers"])
+            and all(ia == ib and same_docs([x], [y])
+                    for (ia, x), (ib, y) in zip(a["tiers"], b["tiers"])))
+
+
+def feeder_oracle(dev, d: str, steps, frames, config, **stack_kw) -> dict:
+    """The uninterrupted run of `steps` on a FeederStack under a chaos plan
+    without rules (it counts the seams): its outputs, counters, wall
+    seconds, and the host-fetch index and step of every drain's row
+    fetch (a drain that made its second fetch)."""
+    from deepflow_tpu_torch import chaos
+
+    st = FeederStack(dev, d, "oracle.j", config, **stack_kw)
+    plan = chaos.FaultPlan()
+    row_fetches = []
+    real = st.pipe.wm._drain_flush
+
+    def drain(entry):
+        n0 = plan.calls.get(chaos.SITE_FETCH, 0)
+        out = real(entry)
+        if plan.calls.get(chaos.SITE_FETCH, 0) - n0 == 2:
+            row_fetches.append((st.step, n0 + 1))
+        return out
+
+    st.pipe.wm._drain_flush = drain
+    t0 = time.perf_counter()
+    with chaos.active(plan):
+        st.run(steps, frames)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    os.remove(st.journal)
+    return {"out": st.out, "counters": st.counters(), "row_fetches": row_fetches,
+            "wall_s": wall, "seams": dict(plan.calls)}
+
+
+def uncounted(fn):
+    """fn() with the kernels' launch counters put back afterwards: a
+    comparison with the plain version is not a launch of the main path."""
+    from deepflow_tpu_torch.ops import segreduce, sketch_fused
+
+    saved = (dict(segreduce.LAUNCHES), dict(sketch_fused.LAUNCHES))
+    try:
+        return fn()
+    finally:
+        segreduce.LAUNCHES.update(saved[0])
+        sketch_fused.LAUNCHES.update(saved[1])
+
+
+def kill_and_recover(dev, d: str, steps, frames, config, rule, oracle, **stack_kw) -> dict:
+    """A victim stack killed by the chaos `rule` (a KillPoint), then a
+    fresh stack recovering from disk alone — load_window_state of the
+    last checkpoint (default device: the card), replay_journal with its
+    barrier, the pump that completes the interrupted one — and finishing
+    the schedule. Its outputs after the victim's durable ones, and its
+    counters, must equal `oracle`'s. Returns the kill step, the time to
+    recover (CUDA-synchronised wall) and the journal's size."""
+    from deepflow_tpu_torch import chaos
+    from deepflow_tpu_torch.aggregator.checkpoint import load_window_state, read_checkpoint_meta
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+
+    victim = FeederStack(dev, d, "victim.j", config, **stack_kw)
+    killed_at = None
+    with chaos.active(chaos.FaultPlan().add(rule)):
+        try:
+            victim.run(steps, frames)
+        except chaos.KillPoint:
+            killed_at = victim.step
+    check(killed_at is not None, "the kill-point never fired")
+    journal_bytes = os.path.getsize(victim.journal)
+    rec = FeederStack(dev, d, "recovered.j", config, **stack_kw)
+    for k, v in victim.out.items():
+        rec.out[k] = v[:victim.durable[k]]  # post-barrier outputs died with the process
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    barrier = None
+    if os.path.exists(victim.ckpt):
+        meta = read_checkpoint_meta(victim.ckpt)
+        barrier = {k: meta[k] for k in ("journal_epoch", "journal_offset")}
+        rec.pipe.wm = load_window_state(victim.ckpt, TAG_SCHEMA, FLOW_METER)
+    rec.collect(rec.feeder.replay_journal(victim.journal, barrier=barrier))
+    rec.collect(rec.feeder.pump())
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    replayed = rec.feeder.counters["replayed_frames"]
+    rec.run(steps, frames, start=killed_at + 1)
+    check(same_stream(rec.out, oracle["out"]), "recovered stream differs from the oracle's")
+    check(rec.counters() == oracle["counters"], "recovered counters differ from the oracle's")
+    for path in (victim.journal, rec.journal):
+        os.remove(path)
+    return {"killed_at": killed_at, "recover_s": recover_s, "replayed_frames": replayed,
+            "journal_bytes": journal_bytes}
+
+
+def checkpoint_phase(dev, sk_cfg, casc_cfg, oracle: dict):
+    """Phase 3i: the 3f stream saved after T0+40 (mid-minute: the minute
+    closes at T0+42), loaded into a fresh pipeline on the card, finished
+    and drained, against 3f's uninterrupted run `oracle`; on the restored
+    state both kernels are held against their plain versions once more
+    (uncounted). Returns (launches, summary)."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        def on_resume(pipe, fb):
+            return {"parity": uncounted(lambda: restored_parity(pipe, fb)),
+                    "launches": all_launches()}
+
+        reset_all_launch_counts()
+        resumed = pipeline_stream(dev, BATCH, CASCADE_SECONDS, sketch=sk_cfg, seed=0,
+                                  cascade=casc_cfg, save_after=40, load_device=dev,
+                                  ckpt_dir=work, on_resume=on_resume)
+        launches = all_launches()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ck = resumed["checkpoint"]
+    at_load = ck["restored"].pop("launches")
+    after_load = {k: v - at_load[k] for k, v in launches.items()}
+    check(after_load["segreduce_gather"] > 0 and after_load["sketch_fused"] > 0,
+          f"the resumed stream launched {after_load}")
+    check(all(r["parity_ok"] for r in ck["restored"]["parity"].values()),
+          "a kernel disagrees with its plain version on the restored state")
+    check_pipeline_run(resumed)
+    check_resumed(resumed, oracle)
+    check(same_blocks(resumed["sketches"], oracle["sketches"])
+          and same_blocks(resumed["tier_sketches"], oracle["tier_sketches"]),
+          "resumed sketch blocks differ")
+    return launches, {"launches": launches, "launches_after_load": after_load, **ck,
+                      "windows": len(resumed["docs"]), "tier_windows": len(resumed["tiers"])}
+
+
+def step_frames(steps, gen, rows_per_frame: int) -> dict:
+    """Each batch step's wire frames (SyntheticFlowGen `gen`, in order)."""
+    from deepflow_tpu_torch.feeder import encode_flowbatch_frames
+
+    return {i: encode_flowbatch_frames(gen.flow_batch(n, t), max_rows_per_frame=rows_per_frame)
+            for i, (kind, *args) in enumerate(steps) if kind == "batch" for t, n in (args,)}
+
+
+def recovery_phase(dev, sk_cfg, casc_cfg):
+    """Phase 3j: kill and recover through FeederRuntime + FrameJournal +
+    PipelineFeedSink — the four kill-points of tests/test_recovery.py at
+    the test's size (card = CPU for the uninterrupted run), then a kill at
+    the first flush-row fetch after the checkpoint at full width (2^18-row
+    buckets). Returns (test-size launches, full-width launches, summary)."""
+    import shutil
+    import tempfile
+
+    from deepflow_tpu_torch import chaos
+    from deepflow_tpu_torch.aggregator.pipeline import PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        small_cfg = PipelineConfig(window=WindowConfig(capacity=1 << 12, delay=DELAY),
+                                   batch_size=256, bucket_sizes=(64, 128, 256))
+        frames = step_frames(RECOVERY_STEPS, SyntheticFlowGen(num_tuples=150, seed=31), 64)
+        kw = dict(frames_per_queue=128, journal_bytes=64 << 20)
+        reset_all_launch_counts()
+        oracle = feeder_oracle(dev, work, RECOVERY_STEPS, frames, small_cfg, **kw)
+        kills = {}
+        for name, (site, index, step) in RECOVERY_KILLS.items():
+            r = kill_and_recover(dev, work, RECOVERY_STEPS, frames, small_cfg,
+                                 chaos.FaultRule(site, at=(index,), error=chaos.KillPoint()),
+                                 oracle, **kw)
+            check(r["killed_at"] == step, f"{name}: killed at step {r['killed_at']}, not {step}")
+            kills[name] = r
+        small_launches = all_launches()
+        check(small_launches["segreduce_gather"] > 0,
+              f"test-size recovery launches {small_launches}")
+        host = feeder_oracle("cpu", work, RECOVERY_STEPS, frames, small_cfg, **kw)
+        check(same_stream(host["out"], oracle["out"]) and host["counters"] == oracle["counters"]
+              and host["seams"] == oracle["seams"],
+              "the uninterrupted schedule differs card vs CPU")
+        test_size = {"launches": small_launches, "kills": kills,
+                     "oracle_wall_s": oracle["wall_s"], "seams": oracle["seams"]}
+
+        full_cfg = PipelineConfig(
+            window=WindowConfig(capacity=STASH_CAPACITY, accum_batches=ACCUM_BATCHES,
+                                delay=DELAY, sketch=sk_cfg, cascade=casc_cfg),
+            batch_size=FULL_BUCKET, batch_unique_cap=UNIQUE_CAP, bucket_sizes=(FULL_BUCKET,))
+        t_enc = time.perf_counter()
+        frames = step_frames(FULL_RECOVERY_STEPS, SyntheticFlowGen(num_tuples=10_000, seed=0),
+                             2048)
+        encode_s = time.perf_counter() - t_enc
+        kw = dict(frames_per_queue=BATCH // 2048, journal_bytes=16 << 30)
+        reset_all_launch_counts()
+        oracle = feeder_oracle(dev, work, FULL_RECOVERY_STEPS, frames, full_cfg, **kw)
+        ckpt_step = FULL_RECOVERY_STEPS.index(("ckpt",))
+        kill_index = next(n for step, n in oracle["row_fetches"] if step > ckpt_step)
+        full = kill_and_recover(dev, work, FULL_RECOVERY_STEPS, frames, full_cfg,
+                                chaos.FaultRule(chaos.SITE_FETCH, at=(kill_index,),
+                                                error=chaos.KillPoint()),
+                                oracle, **kw)
+        full_launches = all_launches()
+        check(full_launches["segreduce_gather"] > 0 and full_launches["sketch_fused"] > 0,
+              f"full-width recovery launches {full_launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # the journal at the kill holds the frames of every step since the
+    # checkpoint's rotate, the killed one included (a pump journals its
+    # whole round before it decodes)
+    journaled = sum(FULL_RECOVERY_STEPS[i][2] for i in range(ckpt_step + 1, full["killed_at"] + 1))
+    full_width = {"launches": full_launches, "kill_fetch_index": kill_index, **full,
+                  "journaled_records": journaled,
+                  "journal_bytes_per_record": full["journal_bytes"] / journaled,
+                  "frames_encode_s": encode_s, "oracle_wall_s": oracle["wall_s"],
+                  "windows": len(oracle["out"]["docs"]),
+                  "tier_windows": len(oracle["out"]["tiers"])}
+    return small_launches, full_launches, {"test_size": test_size, "full_width": full_width}
+
+
+def checkpoint_card_vs_cpu(dev, sk_cfg, small_casc, host_run: dict) -> dict:
+    """Phase 4f: 4d's slab + full-fold stream saved after T0+40 on the
+    card and resumed on the CPU, and the other way round: one digest, the
+    two resumed streams equal, and each equal to 4d's uninterrupted CPU
+    run `host_run`. Returns the summary."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        kw = dict(sketch=sk_cfg, cascade=small_casc, capacity=TIER_SMALL,
+                  tuples=TIER_SMALL_TUPLES, save_after=40, ckpt_dir=work)
+        c2h = pipeline_stream(dev, SMALL_BATCH, CASCADE_SECONDS + [140], load_device="cpu",
+                              **kw)
+        h2c = pipeline_stream("cpu", SMALL_BATCH, CASCADE_SECONDS + [140], load_device=dev,
+                              **kw)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(c2h["checkpoint"]["digest"] == h2c["checkpoint"]["digest"],
+          "the card's and the CPU's files of the same state have different digests")
+    check_card_vs_cpu(c2h, h2c)
+    moved = check_sketch_blocks_card_vs_cpu(c2h["sketches"], h2c["sketches"])
+    for run in (c2h, h2c):
+        check_resumed(run, host_run)
+        moved += check_sketch_blocks_card_vs_cpu(run["sketches"], host_run["sketches"])
+        moved += check_sketch_blocks_card_vs_cpu(run["tier_sketches"],
+                                                 host_run["tier_sketches"])
+    return {"digest": c2h["checkpoint"]["digest"], "raw_bytes": c2h["checkpoint"]["raw_bytes"],
+            "disk_bytes": c2h["checkpoint"]["disk_bytes"], "windows": len(c2h["docs"]),
+            "tier_windows": len(c2h["tiers"]), "hist_counts_moved": moved}
+
+
 def load_other_port(path: str):
     """The ops.segreduce and ops.sketch_fused modules of another checkout
     of this repo (for example the parent commit, unpacked with git
@@ -1554,7 +2038,16 @@ def main() -> int:
           "stream_s": casc_run["seconds"], "ingest_t0_plus_41": casc_run["ingest_profile"],
                       "fetches_per_ingest": casc_run["fetches"], **casc_summary,
                       **casc_timings, "counters": casc_run["counters"]})
+
+    # 3i. checkpoint round trip at the 3f widths (checkpoint_phase), then
+    # 3j. kill and recover through the feeder runtime (recovery_phase)
+    casc_cfg = CascadeConfig(intervals=CASCADE_INTERVALS, capacity=STASH_CAPACITY)
+    main_ckpt, ckpt_summary = checkpoint_phase(dev, sk_cfg, casc_cfg, casc_run)
+    emit({"phase": "checkpoint", "gpu": gpu, **ckpt_summary})
     del casc_run
+    main_recovery_small, main_recovery_full, rec_summary = recovery_phase(dev, sk_cfg,
+                                                                          casc_cfg)
+    emit({"phase": "recovery", "gpu": gpu, **rec_summary})
 
     # 3g. the counter ring and async drain at full width: the 3c stream,
     # 3 batches a second for T0 … T0+5, staged on the card once and
@@ -1648,6 +2141,8 @@ def main() -> int:
                   tuples=TIER_SMALL_TUPLES)
         card = pipeline_stream(dev, SMALL_BATCH, CASCADE_SECONDS + [140], **kw)
         host = pipeline_stream("cpu", SMALL_BATCH, CASCADE_SECONDS + [140], **kw)
+        if label == "slab_full":
+            casc_host = host  # 4f's uninterrupted run
         check_card_vs_cpu(card, host)
         moved = check_sketch_blocks_card_vs_cpu(card["sketches"], host["sketches"],
                                                 coarsen=coarsen)
@@ -1689,6 +2184,11 @@ def main() -> int:
               "snapshot_windows": sum(len(x.windows) for x in card["snapshots"]),
               "hist_counts_moved": moved, "card_s": card["seconds"], "cpu_s": host["seconds"]})
 
+    # 4f. checkpoints card = CPU (checkpoint_card_vs_cpu)
+    emit({"phase": "card_vs_cpu_checkpoint",
+          **checkpoint_card_vs_cpu(dev, sk_cfg, small_casc, casc_host)})
+    del casc_host
+
     # 5. result lines
     kernels = []
     launches = {"segreduce_gather": (main_gather, per_cycle_gather),
@@ -1713,7 +2213,9 @@ def main() -> int:
             # read after it
             "launches_merge_cycles": main_merge[k], "launches_pool_merge": main_pool[k],
             "launches_cascade": main_cascade[k], "launches_ring_async": main_ring[k],
-            "launches_live_read": main_live[k],
+            "launches_live_read": main_live[k], "launches_checkpoint": main_ckpt[k],
+            "launches_recovery_test_size": main_recovery_small[k],
+            "launches_recovery_full_width": main_recovery_full[k],
         })
     sk_name, sk_replaces, sk_source = SKETCH_KERNEL
     kernels.append({
@@ -1723,6 +2225,9 @@ def main() -> int:
         "launches_pool_merge": main_pool[sk_name],
         "launches_cascade": main_cascade[sk_name],
         "launches_ring_async": main_ring[sk_name], "launches_live_read": main_live[sk_name],
+        "launches_checkpoint": main_ckpt[sk_name],
+        "launches_recovery_test_size": main_recovery_small[sk_name],
+        "launches_recovery_full_width": main_recovery_full[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",

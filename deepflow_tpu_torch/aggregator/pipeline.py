@@ -114,7 +114,8 @@ def upload_flow_batch(batch: FlowBatch, device) -> tuple[dict, torch.Tensor, tor
     names = sorted(batch.tags)
     mat = from_numpy_u32(np.stack([np.asarray(batch.tags[k]) for k in names]), device)
     tags = {k: mat[i] for i, k in enumerate(names)}
-    meters = torch.from_numpy(np.ascontiguousarray(batch.meters, np.float32)).to(device)
+    # decoded wire frames hand over read-only buffers: copy those
+    meters = torch.from_numpy(np.require(batch.meters, np.float32, ["C", "W"])).to(device)
     valid = torch.from_numpy(np.asarray(batch.valid, bool)).to(device)
     return tags, meters, valid
 

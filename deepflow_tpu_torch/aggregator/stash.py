@@ -291,11 +291,15 @@ def plan_append(fill: int, capacity: int | None, rows: int) -> str:
 FLUSH_META_COLS = 3
 
 
-def pack_u32_columns(slot, key_hi, key_lo, tags, meters):
-    """The packed flush layout: [3+T+M, S] u32 rows slot, key_hi, key_lo,
-    tags…, bitcast(meters)…, as int32 bit patterns (the host views them
-    as uint32 — byte-identical to the reference's matrix)."""
+def pack_u32_columns(slot, key_hi, key_lo, tags, meters, valid=None):
+    """The packed u32 layout: [K+T+M, S] rows slot, key_hi, key_lo,
+    (valid,) tags…, bitcast(meters)…, as int32 bit patterns (the host
+    views them as uint32 — byte-identical to the reference's matrix).
+    K = FLUSH_META_COLS, +1 with the optional valid lane (the checkpoint
+    layout)."""
     meta = [slot[None, :], key_hi[None, :], key_lo[None, :]]
+    if valid is not None:
+        meta.append(valid.to(torch.int64)[None, :])
     u32 = to_i32_bits(torch.cat(meta + [tags], dim=0))
     return torch.cat([u32, meters.contiguous().view(torch.int32)], dim=0)
 

@@ -48,7 +48,14 @@ Reads are rate-limited by `WindowConfig.min_snapshot_interval`, counted
 in `snapshot_reads` / `snapshot_bytes`, and mirrored into counter-block
 lanes 16–17.
 
-Absent: retry/chaos seams, lineage, spans and profiling registration.
+Every dispatch of the append step and every device→host fetch passes a
+chaos seam (`chaos.SITE_DISPATCH` before the step runs, `SITE_FETCH`
+before the copy) under the retry policy of utils/retry.py, in the
+reference's order, so a fault plan's call indices name the same
+dispatch and fetch in both packages; retries are counted in
+`dispatch_retries` / `fetch_retries`.
+
+Absent: lineage, spans and profiling registration.
 """
 
 from __future__ import annotations
@@ -59,10 +66,12 @@ import time
 import numpy as np
 import torch
 
+from .. import chaos
 from ..datamodel.schema import FLOW_METER, TAG_SCHEMA, MeterSchema, TagSchema
 from ..device import resolve_device
 from ..ops.hashing import fingerprint64_words
 from ..ops.u32 import MASK, U32_MAX, add, mul, shl, to_i32_bits
+from ..utils.retry import RetryPolicy, decorrelated_rng, is_dispatch_transient, retry_call
 from .cascade import CascadeConfig, TierCascade, TierFlush
 from .sketchplane import (
     SENTINEL_WIN,
@@ -582,10 +591,27 @@ class WindowManager:
         self._ring_count = 0
         self._sw_state = (torch.zeros((2,), dtype=torch.int64, device=self.device)
                           if k > 1 else None)
+        # transient-failure policy: dispatch and fetch retry with backoff
+        # and jitter (a per-instance rng; the chaos plan's own seeded rng
+        # keeps fault injection deterministic)
+        self.retry_policy = RetryPolicy()
+        self._retry_rng = decorrelated_rng(0xD15EA5E)
+        self.dispatch_retries = 0
+        self.fetch_retries = 0
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
-        """host_fetch + transfer accounting (count + bytes)."""
-        arr = host_fetch(x)
+        """host_fetch behind the SITE_FETCH seam, retried on transient
+        faults (the device tensor stays valid across a failed fetch), +
+        transfer accounting (count + bytes)."""
+
+        def once():
+            chaos.maybe_fail(chaos.SITE_FETCH)
+            return host_fetch(x)
+
+        def on_retry(_attempt, _exc):
+            self.fetch_retries += 1
+
+        arr = retry_call(once, self.retry_policy, on_retry=on_retry, rng=self._retry_rng)
         self.host_fetches += 1
         self.bytes_fetched += arr.nbytes
         return arr
@@ -978,7 +1004,19 @@ class WindowManager:
             sw = self._sw_state[0]
         else:
             sw = 0 if self.start_window is None else self.start_window
-        out = dispatch(self.acc, self.fill, sw)
+
+        def dispatch_once():
+            # the seam fires BEFORE the step, which writes the ring (and
+            # the sketch plane) in place: a retried injected fault never
+            # meets a half-applied step
+            chaos.maybe_fail(chaos.SITE_DISPATCH)
+            return dispatch(self.acc, self.fill, sw)
+
+        def on_retry(_attempt, _exc):
+            self.dispatch_retries += 1
+
+        out = retry_call(dispatch_once, self.retry_policy, on_retry=on_retry,
+                         rng=self._retry_rng, classify=is_dispatch_transient)
         if self.sk is not None:
             self.acc, stats_dev, self.sk = out
         else:
@@ -1054,6 +1092,9 @@ class WindowManager:
             "host_fetches": self.host_fetches,
             "bytes_fetched": self.bytes_fetched,
             "bytes_uploaded": self.bytes_uploaded,
+            # transient faults the retry policy absorbed
+            "dispatch_retries": self.dispatch_retries,
+            "fetch_retries": self.fetch_retries,
             "feeder_shed": self.feeder_shed,
             # counter-ring blocks awaiting the 1/K fetch: host counters may
             # trail the device by that many batches

@@ -506,3 +506,141 @@ def test_snapshot_card_matches_cpu(cuda, pool):
     assert card[4]["snapshot_reads"] == len(batches)
     if pool:
         assert card[2] == {"compact", "wide"}
+
+
+def _ckpt_config():
+    from deepflow_tpu_torch.aggregator import cascade, window
+
+    return window.WindowConfig(capacity=1 << 12, sketch=_plane_config(False),
+                               cascade=cascade.CascadeConfig(intervals=(60,), capacity=1 << 12))
+
+
+def _ckpt_run(save_dev, load_dev, batches, path, save_after=5):
+    """A WindowManager (slab plane, minute cascade) on `save_dev` over the
+    first batches, saved to `path` and resumed on `load_dev` for the
+    rest: the windows (the save's in-flight ones included), the tier
+    windows, the file's digest and the counters."""
+    from deepflow_tpu_torch.aggregator import checkpoint, window
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+
+    wm = window.WindowManager(_ckpt_config(), device=save_dev)
+    out, tiers = [], []
+    for i, (ts, hi, lo, tags, meters, valid) in enumerate(batches):
+        t = lambda x: torch.from_numpy(np.asarray(x)).to(wm.device)  # noqa: E731
+        out += wm.ingest(t(ts), t(hi), t(lo), t(tags), t(meters), t(valid))
+        tiers += wm.pop_tier_windows()
+        if i == save_after:
+            out += checkpoint.save_window_state(wm, path)
+            wm = checkpoint.load_window_state(path, TAG_SCHEMA, FLOW_METER, device=load_dev)
+    out += wm.flush_all()
+    tiers += wm.pop_tier_windows()
+    c = wm.get_counters()
+    return ([_window_sig(f) for f in out], [(f.tier, _window_sig(f)) for f in tiers],
+            checkpoint.read_checkpoint_meta(path)["digest"],
+            {k: c[k] for k in ("doc_in", "flushed_doc", "window_advances", "sketch_rows",
+                               "cascade_rows", "cascade_tier_windows")})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("way", ["card_to_cpu", "cpu_to_card"])
+def test_checkpoint_card_and_cpu_cross_load(cuda, tmp_path, way):
+    """A file saved on the card loads on the CPU, and a CPU-saved file on
+    the card; both continue to the CPU run's windows, tier windows and
+    counters, and the card's file has the CPU's digest. The resumed card
+    side launches both kernels."""
+    from deepflow_tpu_torch.ops import segreduce
+
+    batches = _doc_stream(73, _SECONDS)
+    want = _ckpt_run("cpu", "cpu", batches, tmp_path / "cpu.ckpt")
+    segreduce.reset_launch_counts()
+    sketch_fused.reset_launch_counts()
+    save_dev, load_dev = (cuda, "cpu") if way == "card_to_cpu" else ("cpu", cuda)
+    got = _ckpt_run(save_dev, load_dev, batches, tmp_path / "x.ckpt")
+    assert segreduce.LAUNCHES["segreduce_gather"] > 0 and sketch_fused.LAUNCHES["sketch_fused"] > 0
+    assert got == want and want[1] and sum(1 for w in want[0] if w[1]) > 0
+
+
+@pytest.mark.cuda
+def test_kill_point_recovered_on_card(cuda, tmp_path):
+    """The mid-flush kill of the reference's matrix (host fetch 5) on the
+    card: L4Pipeline behind FeederRuntime + FrameJournal, recovered from
+    checkpoint + journal on a fresh card stack, emits the uninterrupted
+    card run's stream and counters, which equal the CPU run's."""
+    from deepflow_tpu_torch import chaos
+    from deepflow_tpu_torch.aggregator import checkpoint
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+    from deepflow_tpu_torch.feeder import (FeederConfig, FeederRuntime, FrameJournal,
+                                           PipelineFeedSink, encode_flowbatch_frames)
+    from deepflow_tpu_torch.ingest.queues import PyOverwriteQueue
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    t0 = 1_700_000_000
+    steps = [(t0, 100), (t0 + 1, 120), "ckpt", (t0 + 5, 90), (t0 + 6, 110), "ckpt",
+             (t0 + 7, 80), (t0 + 10, 100), "drain"]
+    gen = SyntheticFlowGen(num_tuples=150, seed=31)
+    frames = [encode_flowbatch_frames(gen.flow_batch(s[1], s[0]), max_rows_per_frame=64)
+              if isinstance(s, tuple) else None for s in steps]
+
+    def stack(dev, d, jname):
+        pipe = L4Pipeline(PipelineConfig(window=WindowConfig(capacity=1 << 12),
+                                         batch_size=256, bucket_sizes=(64, 128, 256)),
+                          device=dev)
+        q = PyOverwriteQueue(1 << 12)
+        return pipe, q, FeederRuntime([q], PipelineFeedSink(pipe),
+                                      FeederConfig(frames_per_queue=128),
+                                      journal=FrameJournal(d / jname))
+
+    def run(pipe, q, feeder, d, start=0, out=None, durable=None):
+        out = [] if out is None else out
+        for i in range(start, len(steps)):
+            s = steps[i]
+            if s == "ckpt":
+                out += feeder.checkpoint(lambda b: [pipe._to_docbatch(f) for f in
+                                                    checkpoint.save_window_state(
+                                                        pipe.wm, d / "wm.ckpt", extra_meta=b)])
+            elif s == "drain":
+                out += feeder.flush() + pipe.drain()
+            else:
+                for fr in frames[i]:
+                    q.put(fr)
+                out += feeder.pump()
+            if durable is not None and s in ("ckpt", "drain"):
+                durable[0] = len(out)
+        return out
+
+    def sig(dbs):
+        return [(db.timestamp.tobytes(), db.tags.tobytes(), db.meters.tobytes()) for db in dbs]
+
+    def counters(pipe):
+        c = pipe.get_counters()
+        return {k: c[k] for k in ("doc_in", "flushed_doc", "drop_before_window",
+                                  "window_advances", "feeder_shed")}
+
+    want = {}
+    for dev in ("cpu", cuda):
+        d = tmp_path / f"oracle_{torch.device(dev).type}"
+        d.mkdir()
+        pipe, q, feeder = stack(dev, d, "j.bin")
+        want[torch.device(dev).type] = (sig(run(pipe, q, feeder, d)), counters(pipe))
+    assert want["cuda"] == want["cpu"] and want["cpu"][0]
+
+    d = tmp_path / "victim"
+    d.mkdir()
+    pipe, q, feeder = stack(cuda, d, "j1.bin")
+    out, durable = [], [0]
+    plan = chaos.FaultPlan().add(chaos.FaultRule(chaos.SITE_FETCH, at=(5,),
+                                                 error=chaos.KillPoint()))
+    with chaos.active(plan):
+        with pytest.raises(chaos.KillPoint):
+            run(pipe, q, feeder, d, out=out, durable=durable)
+    killed_at = 4  # the T0+6 pump: its dispatch of T0+5 advances and flushes
+    pipe, q, feeder = stack(cuda, d, "j2.bin")
+    pipe.wm = checkpoint.load_window_state(d / "wm.ckpt", TAG_SCHEMA, FLOW_METER)
+    meta = checkpoint.read_checkpoint_meta(d / "wm.ckpt")
+    got = out[:durable[0]] + feeder.replay_journal(d / "j1.bin", barrier={
+        k: meta[k] for k in ("journal_epoch", "journal_offset")})
+    got += feeder.pump()
+    got = run(pipe, q, feeder, d, start=killed_at + 1, out=got)
+    assert (sig(got), counters(pipe)) == want["cuda"]

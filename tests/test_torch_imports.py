@@ -43,7 +43,10 @@ def test_port_and_chip_smoke_import_no_jax():
                 "ops.segreduce", "ops.segment", "aggregator.fanout",
                 "aggregator.stash", "aggregator.window", "aggregator.pipeline",
                 "convert", "kernels.build", "ops.hll", "ops.cms", "ops.histogram",
-                "ops.tdigest", "ops.topk", "ops.sketch_fused", "aggregator.sketchplane"):
+                "ops.tdigest", "ops.topk", "ops.sketch_fused", "aggregator.sketchplane",
+                "aggregator.checkpoint", "chaos", "chaos.plan", "feeder", "feeder.flowframe",
+                "feeder.journal", "feeder.runtime", "ingest.framing", "ingest.queues",
+                "utils", "utils.retry", "utils.spans"):
         assert f"deepflow_tpu_torch.{mod}" in result["imported"]
     forbidden = [m for m in result["modules"] if _is_forbidden(m)]
     assert forbidden == []
