@@ -126,6 +126,24 @@ loudly with a nonzero exit:
    + the tail pump, synchronised wall) and the journal's bytes per
    record. Journals and checkpoints live in a temporary directory that
    is deleted.
+3k. The sharded path, counts zeroed before and read after each run:
+   BASELINE config 5 (bench_all.py:300-309; a 2^18-row stash a shard)
+   on 4 logical shards of the card in a (2 × 2) mesh, fed 2^21-row
+   batches of SyntheticFlowGen(10_000, seed=0) for T0 … T0+5 and a
+   drain (the T0+4 ingest profiled). Checks: segreduce_gather and
+   sketch_fused on shard 0's operands equal their plain versions
+   (uncounted); ≤ 3 fetches per ingest, 2 per drain; per key, the
+   shards' DocBatch SUM meters summed equal the single-chip L4Pipeline's
+   1 s rollup of the same batches (integer values below 2^24 bit for
+   bit, the rest within rtol 1e-5; MAX exact); the merged window_close
+   HLL view equals the single-chip plane's registers, and each closed
+   block's HLL the single-chip block's. Run B saves after T0+3
+   (save_sharded_state), restores into a fresh manager and must emit
+   the same stream; run C adds the minute + hour cascade over T0+38 …
+   T0+43, whose minute must equal the fold of its seconds. Then card =
+   CPU at 2^14-row batches (DocBatches, tier DocBatches, blocks,
+   snapshots, counters). Printed: records/s, launches and idle share of
+   an ingest, window_close ms, the file's bytes and save/load wall.
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
@@ -541,10 +559,11 @@ def sketch_operands(dev, sk=None, fb=None, sw: int | None = None):
     return cfg, sk, sp.fused_operands(sk, in_c, presorted=presorted, **x)
 
 
-def sketch_kernel_parity(dev, *, timed: bool = True, **operands) -> dict:
+def sketch_kernel_parity(dev, *, timed: bool = True, fused=None, **operands) -> dict:
     """The fused sketch update at the main-path shape (`sketch_operands`,
-    which takes `operands`), kernel vs plain on clones, exact; with
-    `timed`, times and the bytes bound of this input."""
+    which takes `operands`; or the given `fused` = (cfg, plane, keywords)),
+    kernel vs plain on clones, exact; with `timed`, times and the bytes
+    bound of this input."""
     from deepflow_tpu_torch.aggregator import sketchplane as sp
     from deepflow_tpu_torch.ops.cms import row_slots
     from deepflow_tpu_torch.ops.sketch_fused import (
@@ -552,7 +571,7 @@ def sketch_kernel_parity(dev, *, timed: bool = True, **operands) -> dict:
     )
     from deepflow_tpu_torch.ops.topk import _apply_challengers
 
-    cfg, sk, kw = sketch_operands(dev, **operands)
+    cfg, sk, kw = fused if fused is not None else sketch_operands(dev, **operands)
     n = int(kw["s_pos"].shape[0])
     s_mask = kw["mask"][kw["s_pos"]]
     live = int(s_mask.sum())
@@ -1437,24 +1456,30 @@ def check_resumed(run: dict, oracle: dict) -> None:
     check(run["cascade_lanes"] == oracle["cascade_lanes"], "resumed cascade lanes differ")
 
 
+def fold_parity(state, acc) -> dict:
+    """The fused-gather segmented reduce at the full fold of `state` and
+    its ring `acc`, held against its plain version (untimed)."""
+    from deepflow_tpu_torch.aggregator.stash import fold_operands
+    from deepflow_tpu_torch.ops.segment import SENTINEL_SLOT, segment_ids, sort_keys
+
+    f_slot, f_hi, f_lo, _, f_rows, f_valid = fold_operands(
+        state, acc.slot, acc.key_hi, acc.key_lo, acc.tags, acc.meters,
+        acc.slot != SENTINEL_SLOT)
+    s_slot, s_hi, s_lo, perm = sort_keys(f_slot, f_hi, f_lo, f_valid)
+    cap = state.capacity
+    seg, first_pos, num_seg = segment_ids(s_slot, s_hi, s_lo, cap)
+    ops = dict(rows=f_rows, seg=seg, first_pos=first_pos, perm=perm.to(torch.int32), cap=cap,
+               live=min(int(num_seg), cap), live_rows=int((seg < cap).sum()))
+    return kernel_parity("segreduce_gather", ops, timed=False)
+
+
 def restored_parity(pipe, fb) -> dict:
     """Both kernels held against their plain versions once more on what a
     restored manager feeds them: the segmented reduce at the fold of its
     restored stash and accumulator ring, the fused sketch update at its
     restored plane with the next batch."""
-    from deepflow_tpu_torch.aggregator.stash import fold_operands
-    from deepflow_tpu_torch.ops.segment import SENTINEL_SLOT, segment_ids, sort_keys
-
     wm = pipe.wm
-    f_slot, f_hi, f_lo, _, f_rows, f_valid = fold_operands(
-        wm.state, wm.acc.slot, wm.acc.key_hi, wm.acc.key_lo, wm.acc.tags, wm.acc.meters,
-        wm.acc.slot != SENTINEL_SLOT)
-    s_slot, s_hi, s_lo, perm = sort_keys(f_slot, f_hi, f_lo, f_valid)
-    cap = wm.state.capacity
-    seg, first_pos, num_seg = segment_ids(s_slot, s_hi, s_lo, cap)
-    ops = dict(rows=f_rows, seg=seg, first_pos=first_pos, perm=perm.to(torch.int32), cap=cap,
-               live=min(int(num_seg), cap), live_rows=int((seg < cap).sum()))
-    return {"segreduce_gather": kernel_parity("segreduce_gather", ops, timed=False),
+    return {"segreduce_gather": fold_parity(wm.state, wm.acc),
             "sketch_fused": sketch_kernel_parity(wm.device, timed=False, sk=wm.sk, fb=fb,
                                                  sw=wm.start_window)}
 
@@ -1784,6 +1809,332 @@ def checkpoint_card_vs_cpu(dev, sk_cfg, small_casc, host_run: dict) -> dict:
             "tier_windows": len(c2h["tiers"]), "hist_counts_moved": moved}
 
 
+# phase 3k: the sharded path at BASELINE config 5 (bench_all.py:300-309):
+# 4 shards in a (2 × 2) mesh — here 4 logical shards of the one card
+SHARDS = 4
+# config 5 says 2^12 rows a shard, which would shed: ~10k tuples × 4
+# doc lanes a second land on every shard. 2^18 is the 3f stash's size
+SHARD_CAPACITY = 1 << 18
+SHARDED_SECONDS = list(range(6))
+SHARDED_SAVE_AFTER = 3  # run B saves after T0+3's ingest
+SHARDED_PROFILE_AT = 4  # the T0+4 ingest (a one-window advance) is profiled
+# T0 is 20 s into its minute: [T0 − 20, T0 + 40) closes at T0+42
+SHARDED_CASCADE_SECONDS = [38, 39, 40, 41, 42, 43]
+SHARD_SMALL_CAPACITY = TIER_SMALL  # the card = CPU run at 2^14-row batches
+SHARD_COUNTERS = ("flow_in", "flushed_doc", "drop_before_window", "window_advances")
+
+
+def sharded_config(**kw):
+    """BASELINE config 5 as bench_all.py:300-309 states it (256 service
+    groups, HLL p = 10, count-min 4 × 2^14, histogram 256 bins γ = 1.08,
+    sketch ring 8, top-K 2 × 512, pending 16, per-shard pre-reduce 2^14),
+    with a 2^18-row stash a shard unless `kw` says otherwise."""
+    from deepflow_tpu_torch.ops.histogram import LogHistSpec
+    from deepflow_tpu_torch.parallel.sharded import ShardedConfig
+
+    return ShardedConfig(**{"capacity_per_device": SHARD_CAPACITY, "num_services": 256,
+                            "hll_precision": 10,
+                            "hist": LogHistSpec(bins=256, vmin=1.0, gamma=1.08),
+                            "batch_unique_cap": 1 << 14, **kw})
+
+
+def sharded_manager(dev, cfg):
+    """A ShardedWindowManager of SHARDS shards, all on `dev`, in a (2 × 2)
+    mesh (placed explicitly: make_mesh puts one shard on a card by
+    default)."""
+    from deepflow_tpu_torch.parallel import make_mesh
+    from deepflow_tpu_torch.parallel.sharded import ShardedPipeline, ShardedWindowManager
+
+    mesh = make_mesh(devices=[torch.device(dev)] * SHARDS, n_hosts=2)
+    return ShardedWindowManager(ShardedPipeline(mesh, cfg), delay=DELAY,
+                                min_snapshot_interval=0.0)
+
+
+def synced(fn):
+    """(fn(), its wall seconds), the device synchronised on both sides."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def shard_parity(swm, fb) -> dict:
+    """Both kernels on shard 0's operands, held against their plain
+    versions (untimed): the segmented reduce at the fold of its stash and
+    ring, the fused sketch update at its plane with its rows of `fb` (the
+    new-span phase, as the step runs it)."""
+    from deepflow_tpu_torch.aggregator import sketchplane as sp
+    from deepflow_tpu_torch.aggregator.window import sketch_inputs_from_columns
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER
+
+    pipe = swm.pipe
+    tags, meters, valid = pipe.shard_inputs(fb.tags, fb.meters, fb.valid)[0]
+    cfg, sk = pipe.config.sketch_config(), swm.sketches[0]
+    inp = sketch_inputs_from_columns(tags, meters, cfg.num_groups, FLOW_METER.index)
+    window = tags["timestamp"]
+    _, in_c, _ = sp.phase_masks(sk, window=window, valid=valid, base_w=swm.start_window,
+                                close_w=0)
+    presorted = sp.shared_sort(window, inp["key_hi"], inp["key_lo"])
+    kw = sp.fused_operands(sk, in_c, window=window, presorted=presorted, **inp)
+    return {"segreduce_gather": fold_parity(swm.stash[0], swm.acc[0]),
+            "sketch_fused": sketch_kernel_parity(None, timed=False, fused=(cfg, sk, kw))}
+
+
+def sharded_stream(swm, batches, *, profile_at=None, parity_at=None, save_after=None,
+                   path=None) -> dict:
+    """`swm` over host `batches`, then a drain: every DocBatch, tier
+    DocBatch and closed (tier) sketch block, the fetches of each ingest
+    and of the drain, the synchronised wall of each unprofiled ingest,
+    the merged window_close view after the last ingest, snapshots and
+    counters. `profile_at`: that ingest runs under profile_cycle.
+    `parity_at`: before that ingest, `shard_parity` (uncounted).
+    `save_after`: after that ingest the state is saved to `path` and the
+    stream goes on in a fresh manager that restored it (timed)."""
+    from deepflow_tpu_torch.aggregator import checkpoint as ckpt
+
+    out = {"docs": [], "tiers": [], "blocks": [], "fetches": [], "walls": []}
+    for i, fb in enumerate(batches):
+        if i == parity_at:
+            out["parity"] = uncounted(lambda: shard_parity(swm, fb))
+        f0 = swm.host_fetches
+
+        def ingest():
+            out["docs"].extend(swm.ingest(fb.tags, fb.meters, fb.valid))
+
+        if i == profile_at:
+            out["profile"] = profile_cycle(ingest)
+        else:
+            out["walls"].append(synced(ingest)[1])
+        out["fetches"].append(swm.host_fetches - f0)
+        out["tiers"] += swm.pop_tier_docbatches()
+        out["blocks"] += swm.pop_closed_sketches()
+        if i == save_after:
+            (held, meta, arrays), fetch_s = synced(lambda: ckpt._sharded_payload(swm))
+            out["tiers"] += held
+            _, write_s = synced(lambda: ckpt._write_checkpoint(path, meta, arrays))
+            out["blocks"] += swm.closed_tier_sketches
+            fresh = sharded_manager(swm.pipe.devices[0], swm.pipe.config)
+            swm.close()
+            _, load_s = synced(lambda: ckpt.restore_sharded_state(fresh, path))
+            swm = fresh
+            out["checkpoint"] = {
+                "raw_bytes": sum(a.nbytes for a in arrays.values()),
+                "disk_bytes": os.path.getsize(path),
+                "digest": ckpt.read_checkpoint_meta(path)["digest"],
+                "save_s": fetch_s + write_s, "save_fetch_s": fetch_s, "save_write_s": write_s,
+                "load_s": load_s}
+    out["view"] = swm.pipe.window_close(swm.sketches)[1:]
+    f0 = swm.host_fetches
+    out["docs"] += swm.drain()
+    out["drain_fetches"] = swm.host_fetches - f0
+    out["tiers"] += swm.pop_tier_docbatches()
+    out["blocks"] += swm.pop_closed_sketches() + swm.closed_tier_sketches
+    out["counters"] = swm.get_counters()
+    out["swm"] = swm
+    return out
+
+
+def rollup_by_key(docs, meter_schema, *, with_time: bool = True):
+    """DocBatch rows reduced by (timestamp,) tag row with the schema's
+    SUM (in float64) and MAX lanes — the query layer's cross-shard merge.
+    Returns (sorted unique keys as a void array, [k, M] float64)."""
+    ts = np.concatenate([d.timestamp for d in docs]).astype(np.uint32)
+    tags = np.concatenate([d.tags for d in docs]).astype(np.uint32)
+    meters = np.concatenate([d.meters for d in docs]).astype(np.float64)
+    keys = np.concatenate([ts[:, None], tags], axis=1) if with_time else tags
+    keys = np.ascontiguousarray(keys).view(np.dtype((np.void, keys.shape[1] * 4)))[:, 0]
+    uniq, inv = np.unique(keys, return_inverse=True)
+    out = np.zeros((len(uniq), meters.shape[1]))
+    s, m = meter_schema.sum_mask, meter_schema.max_mask
+    np.add.at(out, inv, np.where(s, meters, 0.0))
+    mx = np.full_like(out, -np.inf)
+    np.maximum.at(mx, inv, meters)
+    return uniq, np.where(m, mx, out)
+
+
+def check_rollups_equal(sharded, single, what: str) -> dict:
+    """Per key the shards' SUM meters summed (float64) against the single
+    pipeline's f32 rollup: every key on both sides, MAX lanes exact, SUM
+    lanes bit-exact where the value is an integer below 2^24 (f32 adds
+    those exactly in any order), within rtol 1e-5 elsewhere."""
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER
+
+    ka, a = sharded
+    kb, b = single
+    check(len(ka) == len(kb) > 0 and np.array_equal(ka, kb), f"{what}: the keys differ")
+    s = np.asarray(FLOW_METER.sum_mask, bool)
+    check(np.array_equal(a[:, ~s], b[:, ~s]), f"{what}: MAX meters differ")
+    exact = (a[:, s] == np.round(a[:, s])) & (np.abs(a[:, s]) < 2 ** 24)
+    check(np.array_equal(a[:, s][exact], b[:, s][exact]), f"{what}: integer SUM meters differ")
+    check(np.all(np.abs(a[:, s] - b[:, s]) <= SUM_RTOL * np.abs(b[:, s])),
+          f"{what}: SUM meters off by more than rtol {SUM_RTOL}")
+    return {"keys": int(len(ka)), "sum_values_exact": int(exact.sum()),
+            "sum_values_rtol": int((~exact).sum())}
+
+
+def sharded_card_vs_cpu(dev) -> dict:
+    """Card = CPU for the sharded manager at test size: 4 shards (2 × 2),
+    2^14-row batches of the phase-4 seconds (a late one included) with a
+    minute cascade and a forced snapshot after every third ingest — the
+    DocBatches, tier DocBatches and snapshots bit for bit, the closed and
+    tier sketch blocks as in check_sketch_blocks_card_vs_cpu, counters."""
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    cfg = sharded_config(capacity_per_device=SHARD_SMALL_CAPACITY, batch_unique_cap=None,
+                         accum_batches=2, cascade=(60,), cascade_capacity=SHARD_SMALL_CAPACITY)
+    seconds = [0, 0, 1, 2, 1, 3, 4, 6, 3, 5, 8, 41, 42, 43]
+    runs = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        gen = SyntheticFlowGen(num_tuples=TIER_SMALL_TUPLES, seed=3)
+        swm = sharded_manager(d, cfg)
+        snaps, docs, tiers = [], [], []
+        for i, s in enumerate(seconds):
+            fb = gen.flow_batch(SMALL_BATCH, T0 + s)
+            docs += swm.ingest(fb.tags, fb.meters, fb.valid)
+            tiers += swm.pop_tier_docbatches()
+            if i % 3 == 2:
+                snaps.append(swm.snapshot_open(force=True))
+        docs += swm.drain()
+        tiers += swm.pop_tier_docbatches()
+        runs[name] = dict(docs=docs, tiers=tiers, snaps=snaps, counters=swm.get_counters(),
+                          blocks=swm.pop_closed_sketches(), tier_blocks=swm.closed_tier_sketches)
+        swm.close()
+    card, host = runs["card"], runs["cpu"]
+    check(same_docs(card["docs"], host["docs"]) and len(host["docs"]) >= 8,
+          "3k: sharded DocBatches differ card vs CPU")
+    check(len(card["tiers"]) == len(host["tiers"]) > 0 and all(
+        ia == ib and same_docs([a], [b]) for (ia, a), (ib, b) in zip(card["tiers"], host["tiers"])),
+        "3k: sharded tier DocBatches differ card vs CPU")
+    check(card["counters"] == host["counters"], "3k: sharded counters differ card vs CPU")
+    check(host["counters"]["drop_before_window"] > 0, "3k: the test stream dropped no late row")
+    moved = check_sketch_blocks_card_vs_cpu(card["blocks"], host["blocks"])
+    moved += check_sketch_blocks_card_vs_cpu(card["tier_blocks"], host["tier_blocks"])
+    moved += check_snapshots_card_vs_cpu(card["snaps"], host["snaps"])
+    return {"windows": len(card["docs"]), "tier_windows": len(card["tiers"]),
+            "blocks": len(card["blocks"]), "snapshots": len(card["snaps"]),
+            "hist_counts_moved": moved}
+
+
+def sharded_phase(dev, gpu: str):
+    """Phase 3k: the sharded path at full width on 4 logical shards of the
+    card. Returns (launches of the main sharded run, of the checkpoint
+    run, of the cascade run, summary)."""
+    import shutil
+    import tempfile
+
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    gen = SyntheticFlowGen(num_tuples=10_000, seed=0)
+    batches = [gen.flow_batch(BATCH, T0 + s) for s in SHARDED_SECONDS]
+    cfg = sharded_config()
+
+    # run A: the main sharded path, counts zeroed before and read after
+    reset_all_launch_counts()
+    a = sharded_stream(sharded_manager(dev, cfg), batches, profile_at=SHARDED_PROFILE_AT,
+                       parity_at=1)
+    main = all_launches()
+    swm = a.pop("swm")
+    check(main["segreduce_gather"] > 0 and main["sketch_fused"] > 0
+          and main["segreduce_sorted"] == 0, f"3k: sharded path launches {main}")
+    check(all(r["parity_ok"] for r in a["parity"].values()),
+          "3k: a kernel disagrees with its plain version on shard 0's operands")
+    check(max(a["fetches"]) <= 3 and a["drain_fetches"] == 2,
+          f"3k: fetches per ingest {a['fetches']}, drain {a['drain_fetches']}")
+    c = a["counters"]
+    flushed = sum(d.size for d in a["docs"])
+    check(c["flow_in"] == sum(int(fb.valid.sum()) for fb in batches)
+          and c["flushed_doc"] == flushed > 0
+          and c["drop_before_window"] == 0, f"3k: counters {c}")
+    check(all(np.isfinite(d.meters).all() for d in a["docs"]), "3k: non-finite meters")
+    close_ms = time_ms(lambda: swm.pipe.window_close(swm.sketches))
+    swm.close()
+    view, pod_1m = a["view"]
+    check(all(torch.equal(x, view.hll[0]) and torch.equal(y, view.hll[0])
+              for x, y in zip(view.hll, pod_1m)), "3k: shards' merged views differ")
+
+    # (b) and (c): the single-chip port over the same batches
+    single = L4Pipeline(PipelineConfig(window=WindowConfig(
+        capacity=STASH_CAPACITY, accum_batches=ACCUM_BATCHES, delay=DELAY,
+        sketch=cfg.sketch_config()), batch_size=BATCH, batch_unique_cap=UNIQUE_CAP), device=dev)
+    s_docs = []
+    for fb in batches:
+        s_docs += single.ingest(fb)
+    s_hll = single.wm.sk.hll.amax(0)
+    s_docs += single.drain()
+    s_blocks = single.pop_closed_sketches()
+    rollup = check_rollups_equal(rollup_by_key(a["docs"], FLOW_METER),
+                                 rollup_by_key(s_docs, FLOW_METER), "3k 1 s rollup")
+    check(torch.equal(view.hll[0], s_hll),
+          "3k: the merged window_close HLL differs from the single-chip plane's")
+    check([b.window for b in a["blocks"]] == [b.window for b in s_blocks]
+          and all(np.array_equal(x.hll, y.hll) for x, y in zip(a["blocks"], s_blocks)),
+          "3k: merged closed blocks' HLL differ from the single-chip blocks'")
+    del single, s_docs
+
+    # run B: saved after T0+3, restored into a fresh manager, finished
+    work = tempfile.mkdtemp(prefix="chip_smoke_3k_")
+    try:
+        reset_all_launch_counts()
+        b = sharded_stream(sharded_manager(dev, cfg), batches, save_after=SHARDED_SAVE_AFTER,
+                           path=os.path.join(work, "swm.ckpt"))
+        ckpt_launches = all_launches()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    b.pop("swm").close()
+    check(same_docs(b["docs"], a["docs"]) and same_blocks(b["blocks"], a["blocks"])
+          and all(b["counters"][k] == a["counters"][k] for k in SHARD_COUNTERS),
+          "3k: the resumed sharded stream differs from the uninterrupted one")
+    del batches
+
+    # run C: the same cell with the minute + hour cascade, over a minute close
+    cb = [gen.flow_batch(BATCH, T0 + s) for s in SHARDED_CASCADE_SECONDS]
+    reset_all_launch_counts()
+    cc = sharded_stream(sharded_manager(dev, sharded_config(
+        cascade=CASCADE_INTERVALS, cascade_capacity=SHARD_CAPACITY)), cb)
+    casc_launches = all_launches()
+    cc.pop("swm").close()
+    del cb
+    check(casc_launches["segreduce_gather"] > 0 and casc_launches["sketch_fused"] > 0,
+          f"3k: cascade launches {casc_launches}")
+    check(max(cc["fetches"]) <= 3, f"3k: cascade fetches per ingest {cc['fetches']}")
+    minute = (T0 + 38) // 60
+    m_docs = [db for iv, db in cc["tiers"] if iv == 60 and int(db.timestamp[0]) // 60 == minute]
+    sec_docs = [d for d in cc["docs"] if int(d.timestamp[0]) // 60 == minute]
+    check(m_docs and len(sec_docs) == 2, "3k: the minute did not close with its seconds")
+    tier_rollup = check_rollups_equal(
+        rollup_by_key(m_docs, FLOW_METER, with_time=False),
+        rollup_by_key(sec_docs, FLOW_METER, with_time=False), "3k minute tier")
+    check(cc["counters"]["cascade_shed"] == 0 and cc["counters"]["cascade_rows"] > 0
+          and any(iv == 3600 for iv, _ in cc["tiers"]), f"3k: cascade counters {cc['counters']}")
+
+    card_cpu = sharded_card_vs_cpu(dev)
+    rows = (len(SHARDED_SECONDS) - 1) * BATCH
+    prof = a["profile"]
+    return main, ckpt_launches, casc_launches, {
+        "gpu": gpu, "shards": SHARDS, "mesh": "2x2", "batch": BATCH,
+        "capacity_per_shard": SHARD_CAPACITY,
+        "records_per_s": rows / sum(a["walls"]), "ingest_walls_s": a["walls"],
+        "launches": main, "launches_per_ingest": prof["kernel_launches"],
+        "profiled_ingest": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                                   "kernel_launches", "copies", "top")},
+        "window_close_ms": close_ms, "fetches_per_ingest": a["fetches"],
+        "drain_fetches": a["drain_fetches"], "parity_shard0": a["parity"],
+        "rollup_vs_single_chip": rollup, "hll_equal_single_chip": True,
+        "checkpoint": b["checkpoint"], "launches_checkpoint": ckpt_launches,
+        "cascade": {"launches": casc_launches, "fetches_per_ingest": cc["fetches"],
+                    "tier_windows": [iv for iv, _ in cc["tiers"]], "minute_vs_seconds": tier_rollup,
+                    "counters": {k: cc["counters"][k] for k in ("cascade_rows", "cascade_shed",
+                                                                "cascade_tier_windows")}},
+        "card_vs_cpu": card_cpu, "counters": c,
+    }
+
+
 def load_other_port(path: str):
     """The ops.segreduce and ops.sketch_fused modules of another checkout
     of this repo (for example the parent commit, unpacked with git
@@ -2049,6 +2400,12 @@ def main() -> int:
                                                                           casc_cfg)
     emit({"phase": "recovery", "gpu": gpu, **rec_summary})
 
+    # 3k. the sharded path: BASELINE config 5 on 4 logical shards of the
+    # card (sharded_phase)
+    main_sharded, main_sharded_ckpt, main_sharded_casc, sharded_summary = sharded_phase(dev, gpu)
+    emit({"phase": "sharded", **sharded_summary})
+    torch.cuda.empty_cache()
+
     # 3g. the counter ring and async drain at full width: the 3c stream,
     # 3 batches a second for T0 … T0+5, staged on the card once and
     # ingested by three pipelines in turn
@@ -2216,6 +2573,9 @@ def main() -> int:
             "launches_live_read": main_live[k], "launches_checkpoint": main_ckpt[k],
             "launches_recovery_test_size": main_recovery_small[k],
             "launches_recovery_full_width": main_recovery_full[k],
+            "launches_sharded": main_sharded[k],
+            "launches_sharded_checkpoint": main_sharded_ckpt[k],
+            "launches_sharded_cascade": main_sharded_casc[k],
         })
     sk_name, sk_replaces, sk_source = SKETCH_KERNEL
     kernels.append({
@@ -2228,6 +2588,9 @@ def main() -> int:
         "launches_checkpoint": main_ckpt[sk_name],
         "launches_recovery_test_size": main_recovery_small[sk_name],
         "launches_recovery_full_width": main_recovery_full[sk_name],
+        "launches_sharded": main_sharded[sk_name],
+        "launches_sharded_checkpoint": main_sharded_ckpt[sk_name],
+        "launches_sharded_cascade": main_sharded_casc[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
@@ -2268,6 +2631,16 @@ def main() -> int:
                       "launches": timed[17]["launches"],
                       "rows": timed[8]["rows"], "bytes": timed[8]["bytes"],
                       "windows": timed[8]["windows"], "fetches": timed[8]["fetches"]}))
+    sh = sharded_summary
+    print(json.dumps({"metric": "port_sharded_records_per_sec", "value": sh["records_per_s"],
+                      "unit": "records/s", "gpu": gpu, "shards": SHARDS, "batch": BATCH,
+                      "device_idle_share": sh["profiled_ingest"]["idle_share"],
+                      "launches_per_ingest": sh["launches_per_ingest"],
+                      "window_close_ms": sh["window_close_ms"],
+                      "fetches_per_ingest": max(sh["fetches_per_ingest"]),
+                      "drain_fetches": sh["drain_fetches"],
+                      "checkpoint": {k: sh["checkpoint"][k] for k in (
+                          "raw_bytes", "disk_bytes", "save_s", "load_s")}}))
     print(json.dumps({"gpu": gpu, "kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

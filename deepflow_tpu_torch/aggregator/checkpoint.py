@@ -30,10 +30,16 @@ The save's device→host copies are plain copies, not the manager's
 `_fetch` seam: the reference's save bypasses it too, so a fault plan's
 fetch indices stay the same in both packages.
 
-Not ported: the sharded save and restore (`save_sharded_state` /
-`restore_sharded_state`, with the sharded managers), the save's tracer
-span (`checkpoint.save`) and its note of the transient device scratch on
-the HBM ledger (`note_transient`).
+`save_sharded_state` / `restore_sharded_state` are the
+parallel/sharded.ShardedWindowManager twins (kind="sharded"): every
+array gains a leading shard axis ([D, 4+T+M, S] stash packs, [D]
+`dropped`, [D, …] sketch lanes and tier stashes), the per-shard scalars
+become [D] lists in meta, and the mesh topology's `describe()` rides
+along. As for one chip, a port file and a reference file of one state
+carry one digest; a restore uploads each shard's slice to its device.
+
+Not ported: the save's tracer span (`checkpoint.save`) and its note of
+the transient device scratch on the HBM ledger (`note_transient`).
 """
 
 from __future__ import annotations
@@ -50,8 +56,8 @@ import numpy as np
 import torch
 
 from .. import chaos
-from ..convert import sketch_from_numpy, sketch_to_numpy
-from ..datamodel.schema import MeterSchema, TagSchema
+from ..convert import sharded_to_numpy, sketch_from_numpy, sketch_to_numpy
+from ..datamodel.schema import TAG_SCHEMA, MeterSchema, TagSchema
 from ..device import resolve_device
 from ..ops.u32 import MASK
 from .cascade import CascadeConfig, pending_block_arrays, restore_pending_blocks
@@ -83,29 +89,31 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
-def _sketch_arrays(sk: SketchState) -> dict:
+def _sketch_arrays(sk) -> dict:
     """The plane's lanes in the reference's dtypes (pending scratch row
-    dropped)."""
-    d = sketch_to_numpy(sk)
+    dropped); a list of per-shard planes gives [D]-leading arrays."""
+    d = sharded_to_numpy(sk, sketch_to_numpy) if isinstance(sk, list) else sketch_to_numpy(sk)
     return {"sk_" + name: np.asarray(d[name]) for name in _SKETCH_LANES + _POOL_LANES}
 
 
-def _sketch_meta(sk: SketchState, cfg: SketchConfig) -> dict:
-    return {
-        "sketch": cfg.meta(),
-        "sketch_pend_n": int(sk.pend_n),
-        "sketch_rows": int(sk.rows),
-        "sketch_shed": int(sk.shed),
-        "sketch_pool_spill": int(sk.pool_spill),
-        "sketch_pool_promos": int(sk.pool_promos),
-    }
+def _sketch_meta(sk, cfg: SketchConfig) -> dict:
+    """The plane's scalars for meta; a list of per-shard planes gives [D]
+    lists."""
+    sks = sk if isinstance(sk, list) else [sk]
+    vals = {key: [int(getattr(x, f)) for x in sks] for key, f in (
+        ("sketch_pend_n", "pend_n"), ("sketch_rows", "rows"), ("sketch_shed", "shed"),
+        ("sketch_pool_spill", "pool_spill"), ("sketch_pool_promos", "pool_promos"))}
+    if not isinstance(sk, list):
+        vals = {k: v[0] for k, v in vals.items()}
+    return {"sketch": cfg.meta(), **vals}
 
 
 def _restore_sketch(meta: dict, arrays: dict, cfg: SketchConfig, ring: int, path,
-                    device) -> SketchState:
+                    device, shard: int | None = None) -> SketchState:
     """→ the plane from a v4+ file, or a LOUDLY logged fresh plane when
     the file predates the sketch tier (v2/v3), was saved with sketches
-    off, or holds pooled arenas of another geometry."""
+    off, or holds pooled arenas of another geometry. `shard` picks one
+    shard's slice of a sharded file."""
     if "sk_win" not in arrays:
         _log.warning(
             "checkpoint %s (version %s) carries no sketch planes — "
@@ -136,11 +144,17 @@ def _restore_sketch(meta: dict, arrays: dict, cfg: SketchConfig, ring: int, path
     # with pool=None, where they are zero-size: a fresh plane supplies
     # them, and promote_fill (never serialized) re-derives from cfg
     fresh = sketch_to_numpy(sketch_init(cfg, ring, device="cpu"))
-    d = {name: arrays.get("sk_" + name, fresh[name]) for name in _SKETCH_LANES + _POOL_LANES}
-    d.update(pend_n=meta["sketch_pend_n"], rows=meta["sketch_rows"],
-             shed=meta["sketch_shed"], pool_spill=meta.get("sketch_pool_spill", 0),
-             pool_promos=meta.get("sketch_pool_promos", 0),
-             promote_fill=fresh["promote_fill"])
+    def pick(x):
+        return x if shard is None else x[shard]
+
+    def scalar(key):  # the pool scalars landed in v6
+        return 0 if key not in meta else pick(meta[key])
+
+    d = {name: pick(arrays["sk_" + name]) if "sk_" + name in arrays else fresh[name]
+         for name in _SKETCH_LANES + _POOL_LANES}
+    d.update(pend_n=scalar("sketch_pend_n"), rows=scalar("sketch_rows"),
+             shed=scalar("sketch_shed"), pool_spill=scalar("sketch_pool_spill"),
+             pool_promos=scalar("sketch_pool_promos"), promote_fill=fresh["promote_fill"])
     return sketch_from_numpy(d, device)
 
 
@@ -177,29 +191,43 @@ def _unpack_acc(mat: np.ndarray, *, num_tags: int, device) -> AccumState:
                       meters=meters)
 
 
-def _cascade_save(casc, config: CascadeConfig) -> tuple[dict, dict]:
+def _cascade_save(config: CascadeConfig, tiers: list, watermarks: list, lanes, pending: list,
+                  tier_windows: int, *, sharded: bool = False) -> tuple[dict, dict]:
     """(meta, arrays) for the cascade's tier state (v5): per-tier packed
     stash planes, host watermarks, the device counter lanes and the open
-    parents' partially merged sketch blocks."""
-    arrays = {f"casc_t{i}_packed": _pack_stash(t) for i, t in enumerate(casc.tiers)}
-    pend_meta, pend_arrays = pending_block_arrays(casc.pending_blocks)
+    parents' partially merged sketch blocks. `sharded`: each tier is a
+    list of per-shard stashes and `lanes` a list of per-shard lanes, so
+    the arrays gain a leading shard axis (and [D] `casc_t<i>_dropped`)."""
+    if sharded:
+        arrays = {f"casc_t{i}_packed": np.stack([_pack_stash(x) for x in t])
+                  for i, t in enumerate(tiers)}
+        for i, t in enumerate(tiers):
+            arrays[f"casc_t{i}_dropped"] = np.array([int(x.dropped_overflow) for x in t],
+                                                    np.int32)
+        lanes_meta = [[int(v) for v in _host(x)] for x in lanes]
+    else:
+        arrays = {f"casc_t{i}_packed": _pack_stash(t) for i, t in enumerate(tiers)}
+        lanes_meta = [int(v) for v in _host(lanes)]
+    pend_meta, pend_arrays = pending_block_arrays(pending)
     arrays.update(pend_arrays)
     meta = {
         "cascade": config.meta(),
-        "cascade_watermarks": [int(w) for w in casc.watermarks],
-        "cascade_lanes": [int(v) for v in _host(casc.lanes_dev)],
+        "cascade_watermarks": [int(w) for w in watermarks],
+        "cascade_lanes": lanes_meta,
         "cascade_pending": pend_meta,
-        "cascade_tier_windows": int(casc.tier_windows_flushed),
-        "cascade_dropped": [int(t.dropped_overflow) for t in casc.tiers],
+        "cascade_tier_windows": int(tier_windows),
     }
+    if not sharded:
+        meta["cascade_dropped"] = [int(t.dropped_overflow) for t in tiers]
     return meta, arrays
 
 
 def _restore_cascade_tiers(meta: dict, arrays: dict, config: CascadeConfig, num_tags: int,
-                           path, *, sketch_config, device):
+                           path, *, sketch_config, device, shards: list | None = None):
     """→ (tier stashes, watermarks, lanes, pending blocks) from a v5+
     file, or None (with a LOUD log) when the file predates the cascade:
-    the caller keeps its fresh tiers."""
+    the caller keeps its fresh tiers. With `shards` (one device per shard)
+    each tier is a list of per-shard stashes and the lanes a list."""
     if "casc_t0_packed" not in arrays:
         _log.warning(
             "checkpoint %s (version %s) carries no cascade tier state — "
@@ -214,14 +242,25 @@ def _restore_cascade_tiers(meta: dict, arrays: dict, config: CascadeConfig, num_
             f"checkpoint {path} cascade config {saved} != manager cascade "
             f"config {config} — tier shapes/intervals disagree"
         )
+
     # one restore-time sort per tier: pre-v6 files hold tier stashes with
     # mid-prefix holes, and the tier ring fold rank-merges against the
     # canonical order
-    tiers = [stash_canonicalize(_unpack_stash(arrays[f"casc_t{i}_packed"],
-                                              meta["cascade_dropped"][i],
-                                              num_tags=num_tags, device=device))
-             for i in range(len(config.intervals))]
-    lanes = torch.tensor(meta["cascade_lanes"], dtype=torch.int64, device=device) & MASK
+    def tier(mat, dropped, dev):
+        return stash_canonicalize(_unpack_stash(mat, dropped, num_tags=num_tags, device=dev))
+
+    def lane(v, dev):
+        return torch.tensor(v, dtype=torch.int64, device=dev) & MASK
+
+    n = len(config.intervals)
+    if shards is None:
+        tiers = [tier(arrays[f"casc_t{i}_packed"], meta["cascade_dropped"][i], device)
+                 for i in range(n)]
+        lanes = lane(meta["cascade_lanes"], device)
+    else:
+        tiers = [[tier(arrays[f"casc_t{i}_packed"][k], arrays[f"casc_t{i}_dropped"][k], dev)
+                  for k, dev in enumerate(shards)] for i in range(n)]
+        lanes = [lane(meta["cascade_lanes"][k], dev) for k, dev in enumerate(shards)]
     pending: list[dict] = [{} for _ in config.intervals]
     if meta.get("cascade_pending"):
         if sketch_config is None:
@@ -387,7 +426,10 @@ def _window_payload(wm: WindowManager) -> tuple[list, dict, dict]:
         # rings fold into their stashes first, so they never serialize.
         in_flight = in_flight + wm.pop_tier_windows()
         wm.cascade.settle_rings()
-        c_meta, c_arrays = _cascade_save(wm.cascade, cfg.cascade)
+        casc = wm.cascade
+        c_meta, c_arrays = _cascade_save(cfg.cascade, casc.tiers, casc.watermarks,
+                                         casc.lanes_dev, casc.pending_blocks,
+                                         casc.tier_windows_flushed)
         meta.update(c_meta)
         arrays.update(c_arrays)
     return in_flight, meta, arrays
@@ -485,3 +527,226 @@ def load_window_state(path: str | Path, tag_schema: TagSchema, meter_schema: Met
     return _restore_window(meta, arrays, path, tag_schema, meter_schema,
                            sketch_config=sketch_config, cascade_config=cascade_config,
                            device=device)
+
+
+# ---------------------------------------------------------------------------
+# sharded ShardedWindowManager
+
+
+def _validate_ownership_transfer(meta: dict, topo, shard_group: int, path) -> None:
+    """Elastic-topology restore contract: a same-process restore needs
+    nothing (unless the file is a handover barrier that gave the group
+    AWAY); a cross-process restore is legal only through a handover
+    manifest naming this process, this group and this topology epoch.
+    Every refusal names both epochs."""
+    saved_pi = meta.get("process_index")
+    if saved_pi is None:
+        return  # pre-topology file: the normal restore
+    saved_epoch = meta.get("topology_epoch", 0)
+    hand = meta.get("handover")
+    here = f"process {topo.process_index} at topology epoch {topo.topology_epoch}"
+    if int(saved_pi) == topo.process_index:
+        # the old owner restoring its own handover barrier would serve the
+        # group on two hosts at once
+        if hand is not None and int(hand.get("to_process", -1)) != topo.process_index:
+            raise ValueError(
+                f"checkpoint {path} is the handover barrier that transferred group "
+                f"{hand.get('group')} to process {hand.get('to_process')} (epoch "
+                f"{hand.get('topology_epoch')}); {here} released it — restoring it "
+                "here would serve the group on two hosts at once"
+            )
+        return
+    if hand is None:
+        raise ValueError(
+            f"checkpoint {path} was saved by process {saved_pi} at topology epoch "
+            f"{saved_epoch} with NO ownership-transfer manifest, but {here} is "
+            "restoring it — a stale (pre-handover) checkpoint cannot change hosts; "
+            "re-run the handover so the owner publishes a manifest-bearing barrier "
+            "checkpoint"
+        )
+    if int(hand.get("to_process", -1)) != topo.process_index:
+        raise ValueError(
+            f"checkpoint {path} transfers group {hand.get('group')} to process "
+            f"{hand.get('to_process')} (epoch {hand.get('topology_epoch')}), but {here} "
+            "is restoring it"
+        )
+    if int(hand.get("group", -1)) != int(shard_group):
+        raise ValueError(
+            f"checkpoint {path} ownership-transfer manifest names group "
+            f"{hand.get('group')} but this manager serves group {shard_group}"
+        )
+    if int(hand.get("topology_epoch", -1)) != topo.topology_epoch:
+        raise ValueError(
+            f"checkpoint {path} was handed over under topology epoch "
+            f"{hand.get('topology_epoch')} but {here} — the checkpoint is stale "
+            "relative to this rebalance (or this process never applied the move); "
+            "publish a fresh handover barrier"
+        )
+
+
+def _sharded_payload(swm) -> tuple[list, dict, dict]:
+    """Fold `swm`'s rings and copy its per-shard state to the host: →
+    (held tier windows, meta, arrays), arrays [D]-leading in the
+    reference's names and dtypes."""
+    swm._fold()  # ring rows must reach the stash before the snapshot
+    arrays = {
+        "stash_packed": np.stack([_pack_stash(s) for s in swm.stash]),
+        "dropped": np.array([int(s.dropped_overflow) for s in swm.stash], np.int32),
+    }
+    arrays.update(_sketch_arrays(swm.sketches))
+    c = swm.pipe.config
+    meta = {
+        "version": _VERSION,
+        "kind": "sharded",
+        "num_tags": int(arrays["stash_packed"].shape[1]) - 4 - int(swm.stash[0].meters.shape[0]),
+        "n_devices": swm.pipe.n_devices,
+        "capacity_per_device": c.capacity_per_device,
+        "interval": swm.interval,
+        "delay": swm.delay,
+        "fold_mode": c.fold_mode,
+        "start_window": swm.start_window,
+        "drop_before_window": swm.drop_before_window,
+        "total_docs_in": swm.total_docs_in,
+        "total_flushed": swm.total_flushed,
+        "n_advances": swm.n_advances,
+    }
+    # the mesh topology this group was saved under, so a restore onto the
+    # wrong host or topology fails at load
+    topo = swm.pipe.topology
+    if topo is not None:
+        meta.update(topo.describe())
+        meta["shard_group"] = swm.pipe.shard_group
+    meta.update(_sketch_meta(swm.sketches, c.sketch_config()))
+    meta["sketch_ring"] = c.sketch_ring
+    in_flight: list = []
+    if swm._tier_ratios:
+        # held tier windows left the tier stashes: the caller emits them
+        in_flight = swm.pop_tier_docbatches()
+        swm.settle_tier_rings()
+        c_meta, c_arrays = _cascade_save(
+            CascadeConfig(intervals=swm._cascade_intervals, capacity=c.cascade_capacity),
+            swm.tier_stashes, swm.tier_watermarks, swm.cascade_lanes,
+            swm._tier_pending_blocks, swm.tier_windows_flushed, sharded=True)
+        meta.update(c_meta)
+        arrays.update(c_arrays)
+    return in_flight, meta, arrays
+
+
+def save_sharded_state(swm, path: str | Path, *, extra_meta=None) -> list:
+    """Snapshot a ShardedWindowManager (kind="sharded", atomic +
+    digested). Folds the accumulator rings first (sharded flushes are
+    synchronous, so nothing else is deferred). Returns the held closed
+    tier windows ((interval, DocBatch) pairs — not in the snapshot; the
+    CALLER must emit them), [] without a cascade."""
+    in_flight, meta, arrays = _sharded_payload(swm)
+    if extra_meta:
+        meta.update(extra_meta)
+    _write_checkpoint(path, meta, arrays)
+    return in_flight
+
+
+def _check_sharded_meta(meta: dict, swm, path) -> None:
+    """Every loud refusal of a sharded restore: kind, shard count, mesh
+    topology and group ownership, schema width, fold mode, capacity,
+    window timing and sketch ring."""
+    if meta.get("kind") != "sharded":
+        raise ValueError(
+            f"checkpoint {path} is kind={meta.get('kind')!r}, not a sharded checkpoint "
+            "(load_window_state loads single-chip ones)"
+        )
+    if meta["n_devices"] != swm.pipe.n_devices:
+        raise ValueError(
+            f"checkpoint {path} was saved on {meta['n_devices']} devices; this mesh has "
+            f"{swm.pipe.n_devices} — per-device stashes cannot be re-split"
+        )
+    topo = swm.pipe.topology
+    ck_pc = meta.get("process_count")
+    if topo is not None:
+        topo.validate_restore(meta, path)
+        ck_group = meta.get("shard_group")
+        if ck_group is not None and int(ck_group) != swm.pipe.shard_group:
+            raise ValueError(
+                f"checkpoint {path} holds shard group {ck_group} but this manager serves "
+                f"group {swm.pipe.shard_group} — restoring it here would serve another "
+                "group's key-hash range"
+            )
+        _validate_ownership_transfer(meta, topo, swm.pipe.shard_group, path)
+    elif ck_pc is not None and (int(ck_pc) > 1 or int(meta.get("n_groups", 1)) > 1):
+        # one shard group's slice of a partitioned key space: a bare
+        # manager would serve the FULL key range with that slice alone
+        raise ValueError(
+            f"checkpoint {path} was saved under a sharded mesh topology ({ck_pc} "
+            f"process(es), {meta.get('n_groups')} shard groups); restoring into a "
+            "topology-less manager would collapse the key-hash placement — build the "
+            "pipeline from a MeshTopology (parallel/topology.py)"
+        )
+    t = TAG_SCHEMA.num_fields
+    if meta["num_tags"] != t:
+        raise ValueError(f"checkpoint tag schema width {meta['num_tags']} != {t}; "
+                         "cannot unpack")
+    if meta.get("fold_mode", "full") != swm.pipe.config.fold_mode:
+        raise ValueError(
+            f"checkpoint fold_mode={meta.get('fold_mode')!r} != pipeline "
+            f"fold_mode={swm.pipe.config.fold_mode!r} — the stash layout contract "
+            "differs between modes (canonical prefix vs holes)"
+        )
+    if meta["capacity_per_device"] != swm.pipe.config.capacity_per_device:
+        raise ValueError(
+            f"checkpoint capacity_per_device={meta['capacity_per_device']} != pipeline "
+            f"{swm.pipe.config.capacity_per_device} — stash shape disagrees with the "
+            "compiled config"
+        )
+    if meta["interval"] != swm.interval or meta["delay"] != swm.delay:
+        raise ValueError(
+            f"checkpoint window timing (interval={meta['interval']}, "
+            f"delay={meta['delay']}) != manager (interval={swm.interval}, "
+            f"delay={swm.delay}) — start_window/drop_before_window are window indices "
+            "in units of interval and would be silently reinterpreted"
+        )
+    if "sketch_ring" in meta and meta["sketch_ring"] != swm.pipe.config.sketch_ring:
+        raise ValueError(
+            f"checkpoint sketch_ring={meta['sketch_ring']} != pipeline "
+            f"sketch_ring={swm.pipe.config.sketch_ring} — per-window slot layout disagrees"
+        )
+
+
+def restore_sharded_state(swm, path: str | Path):
+    """Load a sharded checkpoint (either package's) INTO a freshly built
+    ShardedWindowManager — the caller builds the mesh. Every refusal of
+    `_check_sharded_meta` is loud; each shard's slice is uploaded to its
+    shard's device."""
+    meta, arrays = _read_checkpoint(path)
+    _check_version(meta, path)
+    _check_sharded_meta(meta, swm, path)
+    t = TAG_SCHEMA.num_fields
+    devs = swm.pipe.devices
+    c = swm.pipe.config
+    swm.stash = [_unpack_stash(arrays["stash_packed"][k], arrays["dropped"][k], num_tags=t,
+                               device=dev) for k, dev in enumerate(devs)]
+    # a v2/v3 file carries no per-window planes: re-initialized, loudly
+    swm.sketches = [_restore_sketch(meta, arrays, c.sketch_config(), c.sketch_ring, path, dev,
+                                    shard=k) for k, dev in enumerate(devs)]
+    if swm._tier_ratios:
+        got = _restore_cascade_tiers(
+            meta, arrays, CascadeConfig(intervals=swm._cascade_intervals,
+                                        capacity=c.cascade_capacity),
+            t, path, sketch_config=swm._sk_cfg, device=None, shards=devs)
+        if got is not None:
+            swm.tier_stashes, swm.tier_watermarks, swm.cascade_lanes, \
+                swm._tier_pending_blocks = got
+            # the rings settled at save: they restart empty (lazy re-init)
+            swm.tier_accs = [None] * len(swm.tier_stashes)
+            swm.tier_fills = [None] * len(swm.tier_stashes)
+            swm.tier_windows_flushed = int(meta.get("cascade_tier_windows", 0))
+            lanes = np.asarray(meta["cascade_lanes"], np.int64)
+            swm.cascade_rows = int(lanes[:, 0].sum())
+            swm.cascade_shed = int(lanes[:, 1].sum())
+    swm.acc = None  # re-sized on the first batch after the restore
+    swm.fill = 0
+    swm._fold_rows_dev = None
+    swm.start_window = meta["start_window"]
+    swm.drop_before_window = meta["drop_before_window"]
+    swm.total_docs_in = meta["total_docs_in"]
+    swm.total_flushed = meta["total_flushed"]
+    swm.n_advances = meta.get("n_advances", 0)
+    return swm

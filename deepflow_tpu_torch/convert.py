@@ -12,6 +12,11 @@ mode, on both sides. The cascade's device state is the reference
 `TierCascade`'s per-tier stashes, rings (None before a tier's first
 advance) and int32 fill cursors, its u32 [rows, shed] lanes and its host
 watermarks.
+
+The sharded path's state is [D]-leading on the reference's side (one
+array per field with a leading shard axis) and a list of per-shard
+states on the port's: `sharded_from_numpy` / `sharded_to_numpy` carry
+any of the above across, shard k onto the k-th device.
 """
 
 from __future__ import annotations
@@ -147,3 +152,16 @@ def cascade_from_numpy(casc: TierCascade, d: dict) -> TierCascade:
     casc.lanes_dev = from_numpy_u32(d["lanes"], dev)
     casc.watermarks = [int(w) for w in d["watermarks"]]
     return casc
+
+
+def sharded_from_numpy(d: dict, devices, from_numpy=stash_from_numpy) -> list:
+    """A reference [D]-leading state (`np.asarray` of each field of a
+    sharded StashState / AccumState / SketchState) → one port state per
+    shard, shard k built by `from_numpy` on devices[k]."""
+    return [from_numpy({k: v[i] for k, v in d.items()}, dev) for i, dev in enumerate(devices)]
+
+
+def sharded_to_numpy(states: list, to_numpy=stash_to_numpy) -> dict:
+    """Per-shard port states → the reference's [D]-leading numpy fields."""
+    per = [to_numpy(s) for s in states]
+    return {k: np.stack([p[k] for p in per]) for k in per[0]}

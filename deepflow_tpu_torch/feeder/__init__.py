@@ -1,7 +1,7 @@
 """Feeder runtime — multi-queue fan-in, shape-bucketed coalescing,
 deterministic shedding and the frame journal between the overwrite
-queues and a port pipeline (port of deepflow_tpu/feeder; see
-runtime.py)."""
+queues and a port pipeline or sharded window manager (port of
+deepflow_tpu/feeder; see runtime.py)."""
 
 from .flowframe import (
     decode_flowframe_body,
@@ -16,6 +16,7 @@ from .runtime import (
     FlowChunk,
     FrameCodecBase,
     PipelineFeedSink,
+    ShardedFeedSink,
 )
 
 __all__ = [
@@ -25,6 +26,7 @@ __all__ = [
     "FrameCodecBase",
     "FrameJournal",
     "PipelineFeedSink",
+    "ShardedFeedSink",
     "decode_flowframe_body",
     "encode_flowbatch_body",
     "encode_flowbatch_frames",

@@ -41,10 +41,10 @@ is retried, contained, or counted:
     rotate barrier).
 
 `PipelineFeedSink` feeds flow records to a RollupPipeline through
-`pipeline.stage()` / `pipeline.ingest_staged()`.
+`pipeline.stage()` / `pipeline.ingest_staged()`; `ShardedFeedSink` to a
+parallel/sharded.ShardedWindowManager through `swm.ingest()`.
 
-Not ported with it: `ShardedFeedSink` (with the sharded managers),
-`WindowManagerFeedSink` and `DocChunk` (the pb-Document path through
+Not ported with it: `WindowManagerFeedSink` and `DocChunk` (the pb-Document path through
 `ingest/codec.py`), the push-event bus and lineage hooks of
 `FeederRuntime` (`event_bus=`, `lineage=`, and `FeederConfig.event_db` /
 `event_table`), and the `register_countable` / `register_profilable`
@@ -222,6 +222,38 @@ class PipelineFeedSink(_FlowFrameCodec):
         """Refresh the pipeline's open-window snapshot (rate-limited) —
         the feeder's between-pump scheduling hook."""
         return self.pipeline.snapshot_open()
+
+
+class ShardedFeedSink(_FlowFrameCodec):
+    """Flow records → ShardedWindowManager (one feeder per shard group).
+    Bucket sizes must divide by the mesh's shard count: the sharded step
+    splits the rows evenly across shards."""
+
+    def __init__(self, swm, bucket_sizes: tuple[int, ...]):
+        super().__init__()
+        d = swm.pipe.n_devices
+        bad = [b for b in bucket_sizes if b % d]
+        if bad:
+            raise ValueError(f"bucket sizes {bad} not divisible by device count {d}")
+        self.swm = swm
+        self.bucket_sizes = tuple(bucket_sizes)
+        self.feeder_shed = 0  # the sharded path has no counter block
+
+    def emit(self, chunks: list[FlowChunk], rows: int, bucket: int, shed: int) -> list:
+        fb = FlowBatch.concat([c.fb for c in chunks]).pad_to(bucket)
+        out = self.swm.ingest(fb.tags, fb.meters, fb.valid)
+        # counted only once the batch landed: on a failed dispatch the
+        # runtime re-owns the shed
+        self.feeder_shed += shed
+        return out
+
+    def flush(self) -> list:
+        return []
+
+    def snapshot(self):
+        """Refresh the sharded manager's open-window snapshot (the
+        feeder's between-pump live-read hook)."""
+        return self.swm.snapshot_open()
 
 
 # ---------------------------------------------------------------------------

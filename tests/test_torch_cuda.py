@@ -644,3 +644,71 @@ def test_kill_point_recovered_on_card(cuda, tmp_path):
     got += feeder.pump()
     got = run(pipe, q, feeder, d, start=killed_at + 1, out=got)
     assert (sig(got), counters(pipe)) == want["cuda"]
+
+
+def _sharded_run(dev, variant):
+    """A D = 2 ShardedWindowManager with both shards on `dev` (slab plane
+    + full fold, or pooled memory + merge fold + a minute cascade) over a
+    seeded stream with a late batch and a forced snapshot after every
+    third ingest: its DocBatches, tier DocBatches, closed blocks, the
+    snapshots' rows and the counters."""
+    from deepflow_tpu_torch.aggregator.sketchplane import PoolConfig
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+    from deepflow_tpu_torch.ops.histogram import LogHistSpec
+    from deepflow_tpu_torch.parallel import make_mesh
+    from deepflow_tpu_torch.parallel.sharded import (ShardedConfig, ShardedPipeline,
+                                                     ShardedWindowManager)
+
+    kw = dict(capacity_per_device=1 << 12, num_services=16, hll_precision=8, cms_width=1 << 10,
+              hist=LogHistSpec(bins=64, vmin=1.0, gamma=1.2), accum_batches=2)
+    if variant == "pool_merge_cascade":
+        kw.update(sketch_pool=PoolConfig(cms_factor=16), fold_mode="merge", cascade=(60,),
+                  cascade_capacity=1 << 12)
+    swm = ShardedWindowManager(ShardedPipeline(make_mesh(devices=[torch.device(dev)] * 2),
+                                               ShardedConfig(**kw)), min_snapshot_interval=0.0)
+    gen = SyntheticFlowGen(num_tuples=400, seed=17)
+    t0 = 1_700_000_000  # 20 s into its minute
+
+    def docs(dbs):
+        return [(db.timestamp.tobytes(), db.tags.tobytes(), db.meters.tobytes()) for db in dbs]
+
+    out, snaps = [], []
+    for i, s in enumerate([0, 0, 1, 3, 4, 2, 5, 8, 30, 41, 42, 43, 90]):
+        fb = gen.flow_batch(512, t0 + s)
+        out.append(docs(swm.ingest(fb.tags, fb.meters, fb.valid)))
+        if i % 3 == 2:
+            snaps.append([(w.window_idx, w.key_hi.tobytes(), w.tags.tobytes(),
+                           w.meters.tobytes()) for w in swm.snapshot_open(force=True).windows])
+    out.append(docs(swm.drain()))
+    tiers = [(iv, docs([db])) for iv, db in swm.pop_tier_docbatches()]
+    blocks = swm.pop_closed_sketches() + swm.closed_tier_sketches
+    return out, tiers, blocks, snaps, swm.get_counters()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["slab_full", "pool_merge_cascade"])
+def test_sharded_manager_card_matches_cpu(cuda, variant):
+    """A D = 2 sharded manager with both shards on the card emits the CPU
+    run's DocBatches (meter bits included), tier DocBatches, snapshots and
+    counters; its closed blocks equal the CPU's in every lane but the
+    histogram, whose per-group totals agree (the card's logf may move a
+    count to the next bin). The slab run launched both kernels."""
+    from deepflow_tpu_torch.ops import segreduce
+
+    segreduce.reset_launch_counts()
+    sketch_fused.reset_launch_counts()
+    card = _sharded_run(cuda, variant)
+    assert segreduce.LAUNCHES["segreduce_gather"] > 0
+    if variant == "slab_full":
+        assert sketch_fused.LAUNCHES["sketch_fused"] > 0
+    host = _sharded_run("cpu", variant)
+    assert card[0] == host[0] and sum(map(len, host[0])) >= 8
+    assert card[1] == host[1] and card[3] == host[3] and card[4] == host[4]
+    assert len(card[2]) == len(host[2]) > 0
+    for a, b in zip(card[2], host[2]):
+        assert (a.window, a.n_updates) == (b.window, b.n_updates)
+        for k in ("hll", "cms", "tk_votes", "tk_hi", "tk_lo", "tk_ida", "tk_idb"):
+            assert np.array_equal(getattr(a, k), getattr(b, k)), k
+        assert np.array_equal(a.hist.sum(-1), b.hist.sum(-1))
+    if variant == "pool_merge_cascade":
+        assert card[1] and card[4]["sketch_promotions"] > 0

@@ -46,7 +46,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "ops.tdigest", "ops.topk", "ops.sketch_fused", "aggregator.sketchplane",
                 "aggregator.checkpoint", "chaos", "chaos.plan", "feeder", "feeder.flowframe",
                 "feeder.journal", "feeder.runtime", "ingest.framing", "ingest.queues",
-                "utils", "utils.retry", "utils.spans"):
+                "utils", "utils.retry", "utils.spans", "parallel", "parallel.mesh",
+                "parallel.topology", "parallel.sharded"):
         assert f"deepflow_tpu_torch.{mod}" in result["imported"]
     forbidden = [m for m in result["modules"] if _is_forbidden(m)]
     assert forbidden == []
