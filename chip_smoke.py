@@ -144,6 +144,27 @@ loudly with a nonzero exit:
    CPU at 2^14-row batches (DocBatches, tier DocBatches, blocks,
    snapshots, counters). Printed: records/s, launches and idle share of
    an ingest, window_close ms, the file's bytes and save/load wall.
+3l. The server deployment, counts zeroed before and read after its main
+   path: bench/e2e_ingest.py's stream (SyntheticFlowGen(5_000, seed=0),
+   4096 records a second through L4Pipeline on the card, 200,000 1 s docs
+   in frames of 256 from 8 agent ids; one doc in 20 moved to the
+   internet EPC, one in 20 to an unregistered address) over localhost
+   TCP into Receiver → FlowMetricsIngester (4 workers, 8192-doc enrich
+   chunks) → DocStoreWriter → ColumnarStore on disk, enriched against a
+   platform state at Kubernetes' large-cluster limits (150,000 pods with
+   an IPv4, a MAC and a gprocess each, 5,000 nodes, 10,000 pod services;
+   the stream's addresses are pods' addresses); then the Downsampler
+   (network_1s and network_map_1s → 1 h, chained network_1h → 1 d) and
+   a SQL corpus over the 1 s, 1 h and 1 d tables. The same frames go
+   through the CPU twin: ingester counters, the stored rows (as
+   multisets), the rollups and every query result must equal the card's
+   (integer-valued floats below 2^24 bit for bit, the rest within rtol
+   1e-5). segreduce_gather at the downsample shape is held against its
+   plain version and timed. Printed: docs/s (first frame sent alone as
+   a warm-up, then all frames; until every doc is enriched and handed
+   to the writer), one 8192-doc enrich chunk's device time, launches and
+   fetches, the downsample's rows in/out, wall and device time, and the
+   median query wall. A dead ingester worker fails the phase.
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
@@ -2135,6 +2156,491 @@ def sharded_phase(dev, gpu: str):
     }
 
 
+# phase 3l: the server deployment. The stream is bench/e2e_ingest.py's:
+# SyntheticFlowGen(5_000, seed=0), 4096 records a second through the
+# port's L4Pipeline, 200,000 docs in frames of 256 docs from 8 agent ids.
+# The platform state has the scale of Kubernetes' published large-cluster
+# limits (kubernetes.io "Considerations for large clusters": 5,000 nodes,
+# 150,000 pods): 150,000 pods with one IPv4, one MAC and one gprocess row
+# each, 5,000 node infos and 10,000 pod services; the stream's addresses
+# are the first pods' addresses, so lookups probe the full tables.
+SERVER_DOCS = 200_000
+SERVER_FRAME_DOCS = 256
+SERVER_AGENTS = 8
+SERVER_RECORDS = 4096
+SERVER_PODS = 150_000
+SERVER_NODES = 5_000
+SERVER_POD_SERVICES = 10_000
+SERVER_REGION = 1
+SERVER_CHUNK = 8192
+
+
+def server_stream(dev):
+    """(frames, docs) of the e2e stream: the port's L4Pipeline on the card
+    over SyntheticFlowGen(5_000, seed=0), its DocBatches encoded as 1 s
+    METRICS docs. One doc in 20 is moved to the internet EPC, one in 20
+    to an unregistered address with no pod (lookup misses)."""
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.datamodel.code import DocumentFlag
+    from deepflow_tpu_torch.datamodel.schema import TAG_SCHEMA
+    from deepflow_tpu_torch.enrich.platform import EPC_INTERNET
+    from deepflow_tpu_torch.ingest.codec import encode_docbatch
+    from deepflow_tpu_torch.ingest.framing import FlowHeader, MessageType, encode_frame
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    gen = SyntheticFlowGen(num_tuples=5_000, seed=0)
+    # the stash holds the 4 open windows of ~16k docs each without shedding
+    pipe = L4Pipeline(PipelineConfig(window=WindowConfig(capacity=1 << 17),
+                                     batch_size=SERVER_RECORDS), device=dev)
+    docs, t = [], T0
+    while sum(d.size for d in docs) < SERVER_DOCS:
+        docs += pipe.ingest(gen.flow_batch(SERVER_RECORDS, t))
+        t += 1
+    docs += pipe.drain()
+    check(pipe.counters["drop_overflow"] == 0, "3l: the stream's pipeline shed docs")
+    idx = {n: TAG_SCHEMA.index(n) for n in ("l3_epc_id", "ip0_w3", "pod_id")}
+    msgs, k = [], 0
+    for db in docs:
+        tags = db.tags.copy()
+        j = (k + np.arange(len(tags))) % 20
+        tags[j == 0, idx["l3_epc_id"]] = EPC_INTERNET
+        tags[j == 1, idx["ip0_w3"]] = 0xC6336400 + (j[j == 1] & 0xFF)  # 198.51.100.x
+        tags[j == 1, idx["pod_id"]] = 0
+        k += len(tags)
+        msgs += encode_docbatch(dataclasses.replace(db, tags=tags),
+                                flags=int(DocumentFlag.PER_SECOND_METRICS))
+    msgs = msgs[:SERVER_DOCS]
+    frames = [encode_frame(FlowHeader(msg_type=int(MessageType.METRICS),
+                                      agent_id=1 + (i // SERVER_FRAME_DOCS) % SERVER_AGENTS,
+                                      organization_id=1),
+                           msgs[i:i + SERVER_FRAME_DOCS])
+              for i in range(0, len(msgs), SERVER_FRAME_DOCS)]
+    return frames, len(msgs), gen, t - T0
+
+
+def server_platform(gen):
+    """The K8s-limit platform registry, numpy form (built once on the host)."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.enrich.platform import PlatformInfoTable
+
+    rng = np.random.default_rng(0)
+    pt = PlatformInfoTable(my_region_id=SERVER_REGION)
+    p = gen.pop
+    n_t = len(p["ip0"])
+    # pods 1..10,000 take the stream's addresses (ip0 then ip1 with their
+    # EPCs); the rest get unique 11.x addresses in EPCs 1..49
+    macs = rng.choice(1 << 40, SERVER_PODS, replace=False) + (0x02 << 40)
+    for pod in range(1, SERVER_PODS + 1):
+        i = pod - 1
+        if i < n_t:
+            epc, ip = int(p["epc0"][i]), int(p["ip0"][i])
+        elif i < 2 * n_t:
+            epc, ip = int(p["epc1"][i - n_t]), int(p["ip1"][i - n_t])
+        else:
+            epc, ip = 1 + i % 49, 0x0B000000 + i
+        node = 1 + i % SERVER_NODES
+        # one pod in 25 sits in another region (its docs are dropped)
+        region = SERVER_REGION + 1 if pod % 25 == 0 else SERVER_REGION
+        pt.add_info(epc_id=epc, ips=[ip], mac=int(macs[i]), pod_id=pod, region_id=region,
+                    host_id=node, l3_device_id=pod, l3_device_type=10, subnet_id=1 + i % 4096,
+                    pod_node_id=node, pod_ns_id=1 + i % 500, az_id=1 + i % 3,
+                    pod_group_id=1 + i % SERVER_POD_SERVICES, pod_group_type=101,
+                    pod_cluster_id=1)
+        pt.add_gprocess(gpid=pod, agent_id=1 + i % SERVER_AGENTS, pod_id=pod)
+    for node in range(1, SERVER_NODES + 1):
+        pt.add_info(epc_id=1 + node % 49, ips=[0xC0A80000 + node], region_id=SERVER_REGION,
+                    host_id=node, l3_device_id=200_000 + node, l3_device_type=14,
+                    subnet_id=8192 + node % 64, pod_node_id=node, az_id=1 + node % 3,
+                    pod_cluster_id=1)
+    for g in range(1, SERVER_POD_SERVICES + 1):
+        pt.add_pod_service(500_000 + g, pod_group_id=g)
+    return convert.platform_state_to_numpy(pt.build(device="cpu"))
+
+
+def rows_multiset(cols: dict) -> np.ndarray:
+    """A table's rows as one sorted array of byte strings (strings by
+    their codes, floats by their bits): equal multisets give equal arrays."""
+    names = sorted(cols)
+    if not names or not len(cols[names[0]]):
+        return np.zeros(0, np.uint8)
+    parts = []
+    for k in names:
+        a = np.asarray(cols[k])
+        if a.dtype.kind == "U":
+            a = np.unique(a, return_inverse=True)[1]
+        parts.append(np.ascontiguousarray(a).view(np.uint8).reshape(len(a), -1))
+    mat = np.ascontiguousarray(np.concatenate(parts, axis=1))
+    return np.sort(mat.view(np.dtype((np.void, mat.shape[1]))).ravel())
+
+
+def strings_of(store, db: str, table: str) -> dict:
+    return {c.name: sorted(set(store.scan(db, table, columns=[c.name])[c.name].tolist()))
+            for c in store.schema(db, table).columns if c.dtype.startswith("U")}
+
+
+def drain_writer(writer) -> None:
+    """Wait until every table writer of a DocStoreWriter has landed its
+    rows; fail on a failed store write."""
+    deadline = time.time() + 300
+    for w in list(writer._writers.values()) + [writer._app_tags._w.writer]:
+        while w.get_counters()["pending_rows"]:
+            check(time.time() < deadline, f"3l: the table writer did not drain "
+                                          f"{w.get_counters()}")
+            time.sleep(0.01)
+        check(w.get_counters()["write_fail"] == 0, f"3l: store writes failed "
+                                                   f"{w.get_counters()}")
+
+
+class TeeWriter:
+    """Keeps every EnrichedBatch the ingester hands over (for the CPU
+    twin) and passes it on to the DocStoreWriter."""
+
+    def __init__(self, writer):
+        self.writer = writer
+        self.batches = []
+
+    def put(self, batch) -> None:
+        self.batches.append(batch)
+        self.writer.put(batch)
+
+
+def run_server_stack(state, frames, n_docs: int, root: str) -> dict:
+    """Receiver → FlowMetricsIngester(4 workers) → DocStoreWriter over a
+    ColumnarStore at `root`. The first frame goes alone (the warm-up, as
+    bench/e2e_ingest.py does), then all frames in one write; docs/s is
+    measured from that write until the ingester has enriched and handed
+    every doc to the writer. A dead worker raises from get_counters()."""
+    import socket
+
+    from deepflow_tpu_torch.ingest.receiver import Receiver
+    from deepflow_tpu_torch.server.flow_metrics import FlowMetricsIngester
+    from deepflow_tpu_torch.server.metrics_tables import DocStoreWriter
+    from deepflow_tpu_torch.storage.store import ColumnarStore
+
+    recv = Receiver()
+    recv.start()
+    store = ColumnarStore(root)
+    writer = DocStoreWriter(store)
+    tee = TeeWriter(writer)
+    ing = FlowMetricsIngester(recv, tee, platform_state=state, n_workers=4,
+                              queue_capacity=1 << 15, enrich_chunk=SERVER_CHUNK)
+
+    def settled(total):
+        c = ing.get_counters()
+        return (c["docs_written"] + c["drop_other_region"] == total
+                and c["docs_in"] == total and writer.counters["rows"] == c["docs_written"])
+
+    def wait(total, limit_s):
+        deadline = time.time() + limit_s
+        while not settled(total):
+            check(time.time() < deadline, f"3l: the ingester did not settle {ing.get_counters()}")
+            time.sleep(0.002)
+
+    try:
+        with socket.create_connection(("127.0.0.1", recv.tcp_port)) as s:
+            s.sendall(frames[0])
+            wait(SERVER_FRAME_DOCS, 300)
+            t_start = time.perf_counter()
+            s.sendall(b"".join(frames))
+            wait(SERVER_FRAME_DOCS + n_docs, 600)
+            dt = time.perf_counter() - t_start
+        drain_writer(writer)
+        counters = ing.get_counters()
+        rx = recv.get_counters()
+    finally:
+        ing.stop()
+        writer.stop()
+        recv.stop()
+    return {"store": store, "docs_per_s": n_docs / dt, "seconds": dt, "counters": counters,
+            "batches": tee.batches,
+            "receiver": {k: rx[k] for k in ("rx_frames", "rx_bytes", "bad_frames",
+                                            "agents_seen")}}
+
+
+def cpu_twin(batches, host_state, root: str) -> dict:
+    """The card run's decoded batches enriched again on the CPU, chunk for
+    chunk as the ingester enriches them, and written through a second
+    DocStoreWriter: every enriched lane must equal the card's."""
+    from deepflow_tpu_torch.server.flow_metrics import EnrichedBatch, enrich_batch
+    from deepflow_tpu_torch.server.metrics_tables import DocStoreWriter
+    from deepflow_tpu_torch.storage.store import ColumnarStore
+
+    t0 = time.perf_counter()
+    store = ColumnarStore(root)
+    writer = DocStoreWriter(store)
+    chunks = drops = 0
+    try:
+        for b in batches:
+            d = b.decoded
+            s0, s1, keep, n_drop, n_chunks = enrich_batch(
+                host_state, d.tags, np.ones(len(d.tags), bool), SERVER_CHUNK)
+            for side, got in ((b.side0, s0), (b.side1, s1)):
+                for k, v in got.items():
+                    check(np.array_equal(side[k], v), f"3l: enriched {k} differs card vs CPU")
+            check(np.array_equal(b.keep, keep), "3l: keep mask differs card vs CPU")
+            chunks += n_chunks
+            drops += n_drop
+            writer.put(EnrichedBatch(header=b.header, decoded=d, side0=s0, side1=s1, keep=keep))
+        drain_writer(writer)
+    finally:
+        writer.stop()
+    return {"store": store, "chunks": chunks, "drops": drops,
+            "seconds": time.perf_counter() - t0}
+
+
+SERVER_SQL = (
+    "SELECT Count() AS c, Sum(byte_tx) AS b, Max(rtt_max) AS m, Min(rtt_max) AS mn "
+    "FROM network.1s",
+    "SELECT auto_service_id_0 AS s, auto_service_type_0 AS t, Sum(packet_tx) AS p, "
+    "Avg(rtt_sum) AS a, Count() AS c FROM network.1s GROUP BY auto_service_id_0, "
+    "auto_service_type_0 ORDER BY s, t",
+    "SELECT region_id_0 AS r, tag_source_0 AS ts, Count() AS c FROM network.1s "
+    "GROUP BY region_id_0, tag_source_0 ORDER BY r, ts",
+    "SELECT interval(time, 60) AS t, Sum(byte_tx) AS b, Max(rtt_max) AS m FROM network.1s "
+    "GROUP BY interval(time, 60) ORDER BY t",
+    "SELECT name(protocol) AS p, Count() AS c, rtt_avg FROM network.1s "
+    "GROUP BY name(protocol) ORDER BY p",
+    "SELECT auto_instance_type_1 AS t, Uniq(auto_instance_id_1) AS u, Sum(byte_rx) AS b "
+    "FROM network_map.1s GROUP BY auto_instance_type_1 ORDER BY t",
+    "SELECT pod_group_id_0 AS g, Percentile(rtt_sum, 95) AS p95, Count() AS c "
+    "FROM network.1s GROUP BY pod_group_id_0 HAVING Count() > 20 ORDER BY g LIMIT 50",
+    "SELECT l3_epc_id AS e, Count() AS c, Sum(byte_tx) AS b FROM network.1s "
+    "WHERE l3_epc_id IN (1, 2, 3, 65534) GROUP BY l3_epc_id ORDER BY e",
+    "SELECT interval(time, 3600) AS t, Sum(byte_tx) AS b, Avg(rtt_max) AS a FROM network "
+    "GROUP BY interval(time, 3600) ORDER BY t",
+    "SELECT server_port AS sp, Sum(byte_tx) AS b, Max(rtt_max) AS m FROM network_1h "
+    "GROUP BY server_port HAVING Sum(byte_tx) > 1000 ORDER BY sp",
+    "SELECT Count() AS c, Sum(packet_tx) AS p, Max(rtt_max) AS m FROM network_1d",
+    "SELECT Count() AS c, Sum(packet_tx) AS p, Spread(rtt_max) AS s FROM network_map_1h",
+)
+
+
+def same_result(a, b, what: str) -> None:
+    """Query results card = CPU: integer-valued floats below 2^24 bit for
+    bit, other floats within rtol 1e-5, the rest exactly."""
+    check(a.columns == b.columns and a.rows == b.rows, f"{what}: shape differs")
+    for c in a.columns:
+        x, y = np.asarray(a.values[c]), np.asarray(b.values[c])
+        if y.dtype.kind == "f":
+            exact = np.all(np.abs(y) < 2 ** 24) and np.all(y == np.round(y))
+            ok = (np.array_equal(x, y) if exact
+                  else np.allclose(x, y, rtol=SUM_RTOL, atol=0, equal_nan=True))
+        else:
+            ok = np.array_equal(x, y)
+        check(ok, f"{what}: column {c} differs card vs CPU")
+
+
+def same_rollup(card_store, cpu_store, table: str) -> int:
+    """A derived table card = CPU: the same groups (tags, time) in
+    canonical order; meters as in `same_result`."""
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER
+
+    a, b = card_store.scan("flow_metrics", table), cpu_store.scan("flow_metrics", table)
+    meters = set(FLOW_METER.field_names())
+    keys = sorted(k for k in a if k not in meters)
+
+    def order(cols):
+        codes = [np.unique(cols[k], return_inverse=True)[1] for k in keys]
+        return np.lexsort(codes[::-1])
+
+    oa, ob = order(a), order(b)
+    check(len(oa) == len(ob) > 0, f"{table}: {len(oa)} card rows, {len(ob)} CPU rows")
+    for k in a:
+        x, y = a[k][oa], b[k][ob]
+        if k in meters:
+            exact = np.all(np.abs(y) < 2 ** 24) and np.all(y == np.round(y))
+            ok = np.array_equal(x, y) if exact else np.allclose(x, y, rtol=SUM_RTOL, atol=0)
+        else:
+            ok = np.array_equal(x, y)
+        check(ok, f"{table}: column {k} differs card vs CPU")
+    return len(oa)
+
+
+def downsample(store, device) -> dict:
+    """network_1s → network_1h, network_map_1s → network_map_1h and the
+    chained network_1h → network_1d, with every chunk closed; on the card
+    under the profiler. Returns the counters, the wall, the profile and
+    the arguments of every group-by call."""
+    from deepflow_tpu_torch.server import datasource
+
+    dsm = datasource.Downsampler(store, delay_s=0, device=device)
+    dsm.add(datasource.DataSource(base_table="network_1s", interval="1h"))
+    dsm.add(datasource.DataSource(base_table="network_map_1s", interval="1h"))
+    dsm.add(datasource.DataSource(base_table="network_1h", interval="1d"))
+    original = datasource.groupby_reduce
+    calls = []
+
+    def recording(*args, **kw):
+        calls.append(args)
+        return original(*args, **kw)
+
+    datasource.groupby_reduce = recording
+    try:
+        now = T0 + 3 * 86400
+        if device.type == "cuda":
+            prof = profile_cycle(lambda: dsm.process(now))
+            wall = prof["wall_ms"]
+        else:
+            t0 = time.perf_counter()
+            dsm.process(now)
+            wall = (time.perf_counter() - t0) * 1e3
+            prof = None
+    finally:
+        datasource.groupby_reduce = original
+    return {"counters": dsm.get_counters(), "wall_ms": wall, "profile": prof, "calls": calls,
+            "groupby_rows": [int(c[0].shape[0]) for c in calls]}
+
+
+def downsample_operands(args) -> dict:
+    """The segmented-reduce operands of one recorded downsample group-by
+    (the port's own sort and segment ids, capacity = rows)."""
+    from deepflow_tpu_torch.ops.segment import segment_ids, sort_keys
+
+    slot, hi, lo, _tags_t, rows, valid = args[:6]
+    n = int(slot.shape[0])
+    s_slot, s_hi, s_lo, perm = sort_keys(slot, hi, lo, valid)
+    seg, first_pos, num_seg = segment_ids(s_slot, s_hi, s_lo, n)
+    return dict(rows=rows, seg=seg, first_pos=first_pos, perm=perm.to(torch.int32), cap=n,
+                live=min(int(num_seg), n), live_rows=int((seg < n).sum()))
+
+
+def enrich_chunk_profile(state, tags: np.ndarray) -> dict:
+    """One 8192-doc chunk through enrich_docs and its one packed fetch,
+    under the profiler (after a warm call): device time, kernel launches
+    and copies."""
+    from deepflow_tpu_torch.server.flow_metrics import enrich_chunk_host
+
+    chunk = np.zeros((SERVER_CHUNK, tags.shape[1]), np.uint32)
+    m = min(SERVER_CHUNK, len(tags))
+    chunk[:m] = tags[:m]
+    valid = np.zeros(SERVER_CHUNK, bool)
+    valid[:m] = True
+    prof = profile_cycle(lambda: enrich_chunk_host(state, chunk, valid))
+    copies = sum(prof["copies"].values())
+    return {"rows": m, "wall_ms": prof["wall_ms"], "device_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"], "device_events": prof["kernel_launches"],
+            "kernel_launches": prof["kernel_launches"] - copies, "copies": prof["copies"],
+            "top": prof["top"][:5]}
+
+
+def server_phase(dev, gpu: str):
+    """Phase 3l: the server deployment on the card, counts zeroed before
+    its main path and read after. Returns (launches, segreduce parity at
+    the downsample shape, summary)."""
+    import shutil
+    import tempfile
+
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.ingest.codec import DocumentDecoder
+    from deepflow_tpu_torch.ingest.framing import HEADER_LEN, split_messages
+    from deepflow_tpu_torch.querier import QueryEngine
+
+    t_phase = time.perf_counter()
+    frames, n_docs, gen, stream_seconds = server_stream(dev)
+    t_stream = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    plat = server_platform(gen)
+    t_platform = time.perf_counter() - t0
+    state = convert.platform_state_from_numpy(plat, dev)
+    host_state = convert.platform_state_from_numpy(plat, "cpu")
+    work = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    try:
+        # the main path: ingest → store → downsample → queries
+        reset_all_launch_counts()
+        card = run_server_stack(state, frames, n_docs, os.path.join(work, "card"))
+        card_ds = downsample(card["store"], dev)
+        card_eng = QueryEngine(card["store"], cache=False, device=dev)
+        card_results, query_ms = [], []
+        for sql in SERVER_SQL:
+            card_results.append(card_eng.execute(sql))
+            torch.cuda.synchronize()
+            q0 = time.perf_counter()
+            card_eng.execute(sql)
+            torch.cuda.synchronize()
+            query_ms.append((time.perf_counter() - q0) * 1e3)
+        launches = all_launches()
+        check(launches["segreduce_gather"] >= len(card_ds["calls"]) > 0
+              and launches["segreduce_sorted"] == 0 and launches["sketch_fused"] == 0,
+              f"3l: server path launches {launches}")
+
+        # card = CPU: the card run's decoded batches through the CPU twin
+        host = cpu_twin(card.pop("batches"), host_state, os.path.join(work, "cpu"))
+        c = card["counters"]
+        check(host["chunks"] == c["enrich_chunks"] and host["drops"] == c["drop_other_region"],
+              f"3l: the CPU twin enriched {host['chunks']} chunks, dropped {host['drops']}")
+        check(c["docs_in"] == n_docs + SERVER_FRAME_DOCS and c["decode_errors"] == 0
+              and c["drop_other_region"] > 0 and c["enrich_fetches"] == c["enrich_chunks"],
+              f"3l: ingester counters {c}")
+        tables = {}
+        check(card["store"].databases() == host["store"].databases(), "3l: databases differ")
+        for db in host["store"].databases():
+            derived = {"network_1h", "network_map_1h", "network_1d", "datasource_watermark"}
+            check(set(card["store"].tables(db)) - derived == set(host["store"].tables(db)),
+                  f"3l: {db} tables differ")
+            for t in host["store"].tables(db):
+                a = card["store"].scan(db, t)
+                check(np.array_equal(rows_multiset(a), rows_multiset(host["store"].scan(db, t)))
+                      and strings_of(card["store"], db, t) == strings_of(host["store"], db, t),
+                      f"3l: stored rows of {db}.{t} differ card vs CPU")
+                tables[f"{db}.{t}"] = len(next(iter(a.values())))
+        stored = tables.get("flow_metrics.network_1s", 0) + tables.get(
+            "flow_metrics.network_map_1s", 0)
+        check(stored == c["docs_written"], f"3l: {stored} stored rows, {c['docs_written']} kept")
+        host_ds = downsample(host["store"], torch.device("cpu"))
+        check(host_ds["counters"] == card_ds["counters"], "3l: downsampler counters differ")
+        rollups = {t: same_rollup(card["store"], host["store"], t)
+                   for t in ("network_1h", "network_map_1h", "network_1d")}
+        host_eng = QueryEngine(host["store"], cache=False, device="cpu")
+        for sql, res in zip(SERVER_SQL, card_results):
+            check(res.rows > 0, f"3l: no rows from {sql}")
+            same_result(res, host_eng.execute(sql), sql)
+        packets = {t: float(card_eng.execute(f"SELECT Sum(packet_tx) AS p FROM {t}").values["p"][0])
+                   for t in ("network_1s", "network_1h", "network_1d")}
+        check(np.allclose(list(packets.values()), packets["network_1s"], rtol=SUM_RTOL),
+              f"3l: packets differ across tiers {packets}")
+
+        # the segreduce kernel at the downsample shape (the 1 s → 1 h
+        # rollup of network_1s, the largest call), held against its plain
+        # version; and one enrichment chunk under the profiler
+        big = max(card_ds.pop("calls"), key=lambda a: int(a[0].shape[0]))
+        ds_parity = kernel_parity("segreduce_gather", downsample_operands(big))
+        msgs = [m for f in frames[1:40] for m in split_messages(f[HEADER_LEN:])]
+        tags = np.concatenate([d.tags for d in DocumentDecoder().decode(msgs).values()])
+        enrich = enrich_chunk_profile(state, tags)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary = {
+        "gpu": gpu, "docs": n_docs, "frames": len(frames), "stream_seconds": stream_seconds,
+        "platform": {"pods": SERVER_PODS, "nodes": SERVER_NODES,
+                     "pod_services": SERVER_POD_SERVICES,
+                     "max_probes": {t: plat[t]["max_probes"] for t in (
+                         "pod_t", "mac_t", "epcip_t", "gproc_t", "podsvc_t", "customsvc_t")},
+                     "build_s": t_platform},
+        "docs_per_s": card["docs_per_s"], "ingest_s": card["seconds"],
+        "cpu_twin_s": host["seconds"], "counters": c,
+        "receiver": card["receiver"], "stored_rows": tables,
+        "enrich_chunk": enrich,
+        "fetches_per_chunk": c["enrich_fetches"] / c["enrich_chunks"],
+        "downsample": {"rows_in": card_ds["counters"]["rows_in"],
+                       "rows_out": card_ds["counters"]["rows_out"],
+                       "wall_ms": card_ds["wall_ms"],
+                       "device_ms": card_ds["profile"]["device_busy_ms"],
+                       "idle_share": card_ds["profile"]["idle_share"],
+                       "launches": card_ds["profile"]["kernel_launches"],
+                       "groupby_rows": card_ds["groupby_rows"], "rollup_rows": rollups},
+        "segreduce_downsample": {k: ds_parity[k] for k in (
+            "parity_ok", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "rows", "live_segments", "m")},
+        "query_ms": {"median": statistics.median(query_ms), "max": max(query_ms),
+                     "each": query_ms},
+        "packets": packets, "launches": launches,
+        "prep_s": {"stream": t_stream, "platform": t_platform},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return launches, ds_parity, summary
+
+
 def load_other_port(path: str):
     """The ops.segreduce and ops.sketch_fused modules of another checkout
     of this repo (for example the parent commit, unpacked with git
@@ -2406,6 +2912,12 @@ def main() -> int:
     emit({"phase": "sharded", **sharded_summary})
     torch.cuda.empty_cache()
 
+    # 3l. the server deployment: receiver → decode → device enrichment →
+    # columnar store → downsampler → SQL (server_phase)
+    main_server, ds_parity, server_summary = server_phase(dev, gpu)
+    emit({"phase": "server", **server_summary})
+    torch.cuda.empty_cache()
+
     # 3g. the counter ring and async drain at full width: the 3c stream,
     # 3 batches a second for T0 … T0+5, staged on the card once and
     # ingested by three pipelines in turn
@@ -2576,7 +3088,13 @@ def main() -> int:
             "launches_sharded": main_sharded[k],
             "launches_sharded_checkpoint": main_sharded_ckpt[k],
             "launches_sharded_cascade": main_sharded_casc[k],
+            "launches_server": main_server[k],
         })
+    # the server path's downsample group-by (fused gather only)
+    check(kernels[0]["name"] == "segreduce_gather", "kernels line order")
+    kernels[0]["downsample"] = ds_parity
+    kernels[0]["parity"]["ok"] = kernels[0]["parity"]["ok"] and ds_parity["parity_ok"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], ds_parity["max_abs_err"])
     sk_name, sk_replaces, sk_source = SKETCH_KERNEL
     kernels.append({
         "name": sk_name, "route": "cuda", "source": sk_source, "replaces": sk_replaces,
@@ -2591,6 +3109,7 @@ def main() -> int:
         "launches_sharded": main_sharded[sk_name],
         "launches_sharded_checkpoint": main_sharded_ckpt[sk_name],
         "launches_sharded_cascade": main_sharded_casc[sk_name],
+        "launches_server": main_server[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
@@ -2641,6 +3160,15 @@ def main() -> int:
                       "drain_fetches": sh["drain_fetches"],
                       "checkpoint": {k: sh["checkpoint"][k] for k in (
                           "raw_bytes", "disk_bytes", "save_s", "load_s")}}))
+    sv = server_summary
+    print(json.dumps({"metric": "port_server_docs_per_sec", "value": sv["docs_per_s"],
+                      "unit": "docs/s", "gpu": gpu, "docs": sv["docs"],
+                      "workers": 4, "enrich_chunk": {k: sv["enrich_chunk"][k] for k in (
+                          "device_ms", "kernel_launches", "wall_ms")},
+                      "fetches_per_chunk": sv["fetches_per_chunk"],
+                      "downsample": {k: sv["downsample"][k] for k in (
+                          "rows_in", "rows_out", "wall_ms", "device_ms")},
+                      "query_ms_median": sv["query_ms"]["median"]}))
     print(json.dumps({"gpu": gpu, "kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

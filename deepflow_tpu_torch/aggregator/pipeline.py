@@ -28,9 +28,11 @@ batch ingested twice — is kept as its conformance oracle.
 counter block. The WindowManager's counter ring (`stats_ring`) and
 `async_drain` apply to every pipeline step.
 
-Not ported yet: countable registration, profiling census, lineage,
-telemetry, and the datasource registration of cascade tiers
-(server/datasource.py).
+A pipeline with a cascade lists its tiers with the server's datasource
+registry (`server.datasource.register_cascade_tiers`), weakly held.
+
+Not ported yet: countable registration, profiling census, lineage and
+telemetry.
 """
 
 from __future__ import annotations
@@ -259,6 +261,14 @@ class RollupPipeline:
         # the cascade's merged tier sketch blocks, held the same way
         self.closed_tier_sketches: list = []
         self.tier_sketch_blocks_dropped = 0
+        if config.window.cascade is not None:
+            # the datasource listing reflects which tiers this cascade
+            # serves; lazy import — the aggregator must not hard-depend
+            # on the server layer
+            from ..server.datasource import register_cascade_tiers
+
+            register_cascade_tiers(self.meter_schema.name, config.window.cascade.intervals,
+                                   owner=self)
 
     def _step(self, acc, offset: int, start_window, stash_valid, stash_evict,
               feeder_shed: int, fold_rows, casc_lanes, snap_lanes, sk, tags: dict, meters,

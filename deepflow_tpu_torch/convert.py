@@ -17,6 +17,12 @@ The sharded path's state is [D]-leading on the reference's side (one
 array per field with a leading shard axis) and a list of per-shard
 states on the port's: `sharded_from_numpy` / `sharded_to_numpy` carry
 any of the above across, shard k onto the k-th device.
+
+The enrichment's platform state (`enrich.platform.PlatformState`)
+crosses the same way: its info and gprocess matrices, the six hash
+tables' lanes with their measured `max_probes`, and the region id. Its
+numpy form is a dict; `platform_state_from_numpy` also takes the
+reference's PlatformState itself, reading each field with `np.asarray`.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from .aggregator.cascade import TierCascade
 from .aggregator.sketchplane import SENTINEL_WIN, SketchState
 from .aggregator.stash import AccumState, StashState
 from .device import resolve_device
+from .enrich.platform import TABLES, PlatformState
+from .ops.hashtable import table_from_lanes
 from .ops.u32 import from_numpy_u32, to_numpy_u32
 
 _LANES = ("slot", "key_hi", "key_lo", "tags")
@@ -165,3 +173,42 @@ def sharded_to_numpy(states: list, to_numpy=stash_to_numpy) -> dict:
     """Per-shard port states → the reference's [D]-leading numpy fields."""
     per = [to_numpy(s) for s in states]
     return {k: np.stack([p[k] for p in per]) for k in per[0]}
+
+
+_TABLE_LANES = ("key_hi", "key_lo", "value", "filled")
+
+
+def _field(src, name):
+    return src[name] if isinstance(src, dict) else getattr(src, name)
+
+
+def platform_state_from_numpy(src, device=None) -> PlatformState:
+    """A platform state in numpy form — or the reference's PlatformState
+    — → the port's PlatformState on `device`, bit for bit."""
+    dev = resolve_device(device)
+    tables = {}
+    for name in TABLES:
+        t = _field(src, name)
+        tables[name] = table_from_lanes(
+            *(np.asarray(_field(t, k)) for k in _TABLE_LANES),
+            max_probes=int(_field(t, "max_probes")), device=dev)
+    return PlatformState(
+        infos=from_numpy_u32(np.asarray(_field(src, "infos")), dev),
+        gproc_rows=from_numpy_u32(np.asarray(_field(src, "gproc_rows")), dev),
+        my_region_id=int(np.asarray(_field(src, "my_region_id"))),
+        **tables,
+    )
+
+
+def platform_state_to_numpy(state: PlatformState) -> dict:
+    """The port's PlatformState → numpy form (uint32 lanes, bool fill)."""
+    out = {"infos": to_numpy_u32(state.infos),
+           "gproc_rows": to_numpy_u32(state.gproc_rows),
+           "my_region_id": np.uint32(state.my_region_id)}
+    for name in TABLES:
+        t = getattr(state, name)
+        out[name] = {"key_hi": to_numpy_u32(t.key_hi), "key_lo": to_numpy_u32(t.key_lo),
+                     "value": to_numpy_u32(t.value),
+                     "filled": t.filled.detach().cpu().numpy(),
+                     "max_probes": int(t.max_probes)}
+    return out

@@ -1,5 +1,4 @@
-"""Telemetry wire framing (port copy of the parts of
-deepflow_tpu/ingest/framing.py the feeder uses).
+"""Telemetry wire framing (port copy of deepflow_tpu/ingest/framing.py).
 
 Byte-compatible with the reference's framed TCP/UDP protocol:
 
@@ -11,7 +10,9 @@ Byte-compatible with the reference's framed TCP/UDP protocol:
   * frame body: back-to-back [len u32 LE][message] records, optionally
     compressed (the header's encoder byte).
 
-Not copied: `split_messages` and the receiver's `FrameReassembler`.
+The server side parses the header to route by msg_type and extract
+org/team/agent identity (receiver.go:631-700 semantics); the receiver's
+`FrameReassembler` cuts a TCP stream into frames.
 """
 
 from __future__ import annotations
@@ -175,6 +176,11 @@ def encode_frame(
     return header.encode() + body
 
 
+def split_messages(payload: bytes) -> list[bytes]:
+    """Frame body → message list (inverse of encode_frame's body)."""
+    return [payload[o:o + ln] for o, ln in split_message_spans(payload)]
+
+
 def split_message_spans(payload: bytes) -> list[tuple[int, int]]:
     """Frame body → [(offset, len)] of each message, without
     materializing slices (the decoders read the buffer at these spans)."""
@@ -191,3 +197,35 @@ def split_message_spans(payload: bytes) -> list[tuple[int, int]]:
     if off != n:
         raise ValueError(f"trailing garbage: {n - off} bytes")
     return spans
+
+
+class FrameReassembler:
+    """Incremental TCP stream → frames (the receiver's flow-header scan,
+    receiver.go:515-585). Feed arbitrary chunks; yields (header, body)."""
+
+    def __init__(self, max_frame: int = MAX_FRAME_SIZE + 1):
+        self._buf = bytearray()
+        self.max_frame = max_frame
+        self.bad_frames = 0
+
+    def feed(self, chunk: bytes) -> list[tuple[FlowHeader, bytes]]:
+        self._buf += chunk
+        frames = []
+        while True:
+            if len(self._buf) < HEADER_LEN:
+                return frames
+            header = FlowHeader.parse(bytes(self._buf[:HEADER_LEN]))
+            if (
+                header.frame_size < HEADER_LEN
+                or header.frame_size >= self.max_frame
+                or header.version != HEADER_VERSION
+            ):
+                # resync: drop one byte (malformed stream)
+                self.bad_frames += 1
+                del self._buf[0]
+                continue
+            if len(self._buf) < header.frame_size:
+                return frames
+            body = bytes(self._buf[HEADER_LEN : header.frame_size])
+            del self._buf[: header.frame_size]
+            frames.append((header, body))

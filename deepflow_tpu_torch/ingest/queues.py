@@ -1,11 +1,11 @@
-"""Bounded overwrite queue for the ingest plane (port copy of
-deepflow_tpu/ingest/queues.py::PyOverwriteQueue).
+"""Bounded overwrite queues for the ingest plane (port copy of
+deepflow_tpu/ingest/queues.py).
 
 Mirrors the reference's `OverwriteQueue` (libs/queue/queue.go:43-260):
 fixed capacity, *overwrites oldest on overflow* (backpressure sheds the
 oldest data, never blocks the producer), blocking batched `gets` with a
-timeout on the consumer side. The native C++ ring and the queue factory
-stay with the reference.
+timeout on the consumer side. The native C++ ring stays with the
+reference: `new_queue` always builds the Python queue.
 """
 
 from __future__ import annotations
@@ -75,3 +75,21 @@ class PyOverwriteQueue:
         with self._lock:
             return {"depth": len(self._dq), "capacity": self.capacity,
                     "overwritten": self._overwritten, "closed": int(self._closed)}
+
+
+def new_queue(capacity: int) -> PyOverwriteQueue:
+    """OverwriteQueue factory (the port has no native ring)."""
+    return PyOverwriteQueue(capacity)
+
+
+def register_queue_stats(module: str, queues, **tags: str):
+    """Register every queue on the default StatsCollector, one source
+    per queue (tagged with its index), so overwrite drops are visible
+    the moment the queue exists. Queues are weakly held. Returns the
+    CounterSource list (callers may deregister explicitly)."""
+    from ..utils.stats import register_countable
+
+    return [
+        register_countable(module, q, queue=str(i), **tags)
+        for i, q in enumerate(queues)
+    ]

@@ -6,12 +6,18 @@ column folds with different seeds. Lanes follow the port's u32 rule
 (ops/u32.py): int64 tensors holding u32 values; the murmur multiplies go
 through `u32.mul`, so no intermediate overflows int64. Hash values are
 bit-equal to the JAX package's for the same inputs.
+
+`fingerprint64_np` is the host twin over uint32 numpy arrays, whose
+wrapping arithmetic needs no masking (the reference's `xp=np` path):
+the codec, the platform-table build and the downsampler key rows with
+it on the host.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from .u32 import add, mul, rotl
@@ -62,3 +68,35 @@ def fingerprint64_words(words: Sequence[torch.Tensor]):
     """Fold a pre-packed word list (datamodel.code.pack_tag_words) into
     the (hi, lo) pair — both seeds over the same words."""
     return _fold(words, SEED_HI), _fold(words, SEED_LO)
+
+
+def fmix32_np(h: np.ndarray) -> np.ndarray:
+    """`fmix32` over uint32 numpy arrays (wrapping arithmetic)."""
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(_FMIX1)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(_FMIX2)
+    return h ^ (h >> np.uint32(16))
+
+
+def _rotl_np(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def _fold_np(cols: Sequence[np.ndarray], seed: int) -> np.ndarray:
+    h = None
+    for c in cols:
+        k = _rotl_np(c * np.uint32(_C1), 15) * np.uint32(_C2)
+        if h is None:
+            h = np.full_like(k, np.uint32(seed))
+        h = _rotl_np(h ^ k, 13)
+        h = h * np.uint32(5) + np.uint32(0xE6546B64)
+    return fmix32_np(h ^ np.uint32(len(cols) * 4))
+
+
+def fingerprint64_np(tags) -> tuple[np.ndarray, np.ndarray]:
+    """Host twin of `fingerprint64`: [N, T] uint32 numpy matrix →
+    (hi, lo) pair of [N] uint32 arrays, bit-equal to the device path."""
+    tags = np.asarray(tags, dtype=np.uint32)
+    cols = [tags[:, j] for j in range(tags.shape[1])]
+    return _fold_np(cols, SEED_HI), _fold_np(cols, SEED_LO)

@@ -30,6 +30,9 @@ SPAN_FEEDER_DRAIN = "feeder.drain"  # queue gets + frame decode
 SPAN_FEEDER_COALESCE = "feeder.coalesce"  # bucket assembly + pad
 SPAN_FEEDER_DISPATCH = "feeder.dispatch"  # staged batch → sink ingest
 
+# Query-plane stage, emitted by querier/live.py's result cache.
+SPAN_QUERY_CACHE = "query.cache"  # result-cache lookup (hit or miss)
+
 # the quantiles each stage reports (<stage>.p50_us / .p95_us / .p99_us)
 SPAN_QUANTILES = (0.5, 0.95, 0.99)
 

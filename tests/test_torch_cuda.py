@@ -712,3 +712,132 @@ def test_sharded_manager_card_matches_cpu(cuda, variant):
         assert np.array_equal(a.hist.sum(-1), b.hist.sum(-1))
     if variant == "pool_merge_cascade":
         assert card[1] and card[4]["sketch_promotions"] > 0
+
+
+def _platform_lanes(seed: int, n: int = 3000):
+    """A seeded platform registry in numpy form (pods with an address, a
+    MAC, a gprocess and a pod service; a share in another region)."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.enrich.platform import PlatformInfoTable
+
+    rng = np.random.default_rng(seed)
+    pt = PlatformInfoTable(my_region_id=1)
+    for pod in range(1, n + 1):
+        pt.add_info(epc_id=1 + pod % 7, ips=[0x0A000000 + pod], mac=0x020000000000 + pod,
+                    pod_id=pod, region_id=2 if pod % 11 == 0 else 1, subnet_id=pod % 64,
+                    pod_node_id=1 + pod % 50, pod_group_id=1 + pod % 300, pod_group_type=101,
+                    l3_device_id=pod, l3_device_type=10)
+        pt.add_gprocess(gpid=pod, agent_id=1 + pod % 4, pod_id=pod)
+    for g in range(1, 301):
+        pt.add_pod_service(5000 + g, pod_group_id=g, protocol=int(rng.choice([0, 6])),
+                           server_port=int(rng.choice([0, 80])))
+    pt.add_custom_service(77, epc_id=1, ip=0x0A000001, server_port=443)
+    return convert.platform_state_to_numpy(pt.build(device="cpu"))
+
+
+def _doc_tags(seed: int, n: int) -> np.ndarray:
+    from deepflow_tpu_torch.datamodel.schema import TAG_SCHEMA as T
+
+    rng = np.random.default_rng(seed)
+    tags = np.zeros((n, T.num_fields), np.uint32)
+    put = lambda k, v: tags.__setitem__((slice(None), T.index(k)), v)
+    put("code_id", rng.integers(1, 9, n))
+    put("agent_id", rng.integers(1, 5, n))
+    put("ip0_w3", 0x0A000000 + rng.integers(0, 3500, n))
+    put("ip1_w3", 0x0A000000 + rng.integers(0, 3500, n))
+    put("l3_epc_id", rng.choice([1, 2, 3, 0xFFFE], n))
+    put("l3_epc_id1", rng.choice([1, 2, 3], n))
+    put("mac0_lo", rng.choice([0, 5, 9999], n))
+    put("pod_id", rng.choice([0, 7, 12, 4000], n))
+    put("gpid0", rng.integers(0, 3500, n))
+    put("server_port", rng.choice([0, 80, 443], n))
+    put("protocol", rng.choice([6, 17], n))
+    put("tap_side", rng.choice([1, 2], n))
+    put("signal_source", rng.choice([0, 4], n))
+    return tags
+
+
+@pytest.mark.cuda
+def test_hashtable_lookup_card_matches_cpu(cuda):
+    from deepflow_tpu_torch.ops.hashtable import build_table_np, table_from_lanes
+
+    rng = np.random.default_rng(21)
+    hi = rng.integers(0, 2 ** 32, 5000, dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2 ** 32, 5000, dtype=np.uint64).astype(np.uint32)
+    lanes = build_table_np(hi, lo, np.arange(5000, dtype=np.uint32))
+    q_hi = np.concatenate([hi, rng.integers(0, 2 ** 32, 500, dtype=np.uint64).astype(np.uint32)])
+    q_lo = np.concatenate([lo, np.full(500, 7, np.uint32)])
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        t = table_from_lanes(*lanes, device=dev)
+        v, f = t.lookup(from_numpy_u32(q_hi, dev), from_numpy_u32(q_lo, dev))
+        got.append((v.cpu().numpy(), f.cpu().numpy()))
+    assert np.array_equal(got[0][0], got[1][0]) and np.array_equal(got[0][1], got[1][1])
+    assert got[0][1][:5000].all()
+
+
+@pytest.mark.cuda
+def test_enrich_docs_card_matches_cpu(cuda):
+    """One 8192-doc chunk (and its one packed fetch) on the card equals
+    the CPU's, lane for lane."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.server.flow_metrics import enrich_chunk_host
+
+    lanes = _platform_lanes(3)
+    tags = _doc_tags(4, 8192)
+    valid = np.random.default_rng(5).random(8192) < 0.97
+    card = enrich_chunk_host(convert.platform_state_from_numpy(lanes, cuda), tags, valid)
+    host = enrich_chunk_host(convert.platform_state_from_numpy(lanes, "cpu"), tags, valid)
+    for side in (0, 1):
+        assert sorted(card[side]) == sorted(host[side])
+        for k in host[side]:
+            assert np.array_equal(card[side][k], host[side][k]), (side, k)
+    assert np.array_equal(card[2], host[2]) and card[3] == host[3] > 0
+    assert (card[0]["pod_id"] != 0).any() and (card[0]["service_id"] != 0).any()
+
+
+@pytest.mark.cuda
+def test_downsampler_card_matches_cpu(cuda):
+    """The 1 s → 1 h rollup (both unsummable choices) on the card equals
+    the CPU's: tags exact, integer-valued sums exact, averages within
+    rtol 1e-5; the fused-gather kernel ran."""
+    from deepflow_tpu_torch.ops import segreduce
+    from deepflow_tpu_torch.server.datasource import DataSource, Downsampler
+    from deepflow_tpu_torch.server.metrics_tables import MetricsTableID, table_schema
+    from deepflow_tpu_torch.storage.store import ColumnarStore
+
+    t0 = 1_700_000_000 - 1_700_000_000 % 3600
+    schema = table_schema(MetricsTableID.NETWORK_1S)
+    rng = np.random.default_rng(8)
+    n = 20_000
+    cols = {}
+    for c in schema.columns:
+        if c.name == "time":
+            cols[c.name] = (t0 + rng.integers(0, 7200, n)).astype(np.uint32)
+        elif c.dtype.startswith("U"):
+            cols[c.name] = np.array([f"s{i}" for i in rng.integers(0, 3, n)])
+        elif c.dtype == "f4":
+            cols[c.name] = rng.integers(0, 1000, n).astype(np.float32)
+        elif c.name in ("tap_side", "protocol", "region_id_0", "pod_id_1"):
+            cols[c.name] = rng.integers(0, 6, n).astype(np.uint32)
+        else:
+            cols[c.name] = np.zeros(n, np.uint32)
+    for aggr in ("avg", "max"):
+        out = []
+        segreduce.reset_launch_counts()
+        for dev in (cuda, torch.device("cpu")):
+            store = ColumnarStore()
+            store.create_table("flow_metrics", schema)
+            store.insert("flow_metrics", "network_1s", cols)
+            dsm = Downsampler(store, delay_s=0, device=dev)
+            dsm.add(DataSource(base_table="network_1s", interval="1h", aggr_unsummable=aggr))
+            dsm.process(t0 + 3 * 3600)
+            out.append(store.scan("flow_metrics", "network_1h"))
+        assert segreduce.LAUNCHES["segreduce_gather"] == 2
+        card, host = out
+        assert len(card["time"]) == len(host["time"]) > 0
+        for k in host:  # group order is the key order on both
+            if host[k].dtype.kind == "f" and not np.array_equal(host[k], np.round(host[k])):
+                np.testing.assert_allclose(card[k], host[k], rtol=1e-5, err_msg=k)
+            else:
+                assert np.array_equal(card[k], host[k]), k

@@ -47,7 +47,12 @@ def test_port_and_chip_smoke_import_no_jax():
                 "aggregator.checkpoint", "chaos", "chaos.plan", "feeder", "feeder.flowframe",
                 "feeder.journal", "feeder.runtime", "ingest.framing", "ingest.queues",
                 "utils", "utils.retry", "utils.spans", "parallel", "parallel.mesh",
-                "parallel.topology", "parallel.sharded"):
+                "parallel.topology", "parallel.sharded", "utils.stats", "ops.hashtable",
+                "enrich", "enrich.platform", "ingest.codec", "ingest.receiver", "server",
+                "server.flow_metrics", "server.metrics_tables", "server.datasource",
+                "storage", "storage.store", "storage.writer", "storage.flow_tag", "querier",
+                "querier.engine", "querier.live", "querier.sqlparse", "querier.translation",
+                "querier.metrics"):
         assert f"deepflow_tpu_torch.{mod}" in result["imported"]
     forbidden = [m for m in result["modules"] if _is_forbidden(m)]
     assert forbidden == []
