@@ -146,7 +146,7 @@ loudly with a nonzero exit:
    an ingest, window_close ms, the file's bytes and save/load wall.
 3l. The server deployment, counts zeroed before and read after its main
    path: bench/e2e_ingest.py's stream (SyntheticFlowGen(5_000, seed=0),
-   4096 records a second through L4Pipeline on the card, 200,000 1 s docs
+   4096 records a second through L4Pipeline on the card, 100,000 1 s docs
    in frames of 256 from 8 agent ids; one doc in 20 moved to the
    internet EPC, one in 20 to an unregistered address) over localhost
    TCP into Receiver → FlowMetricsIngester (4 workers, 8192-doc enrich
@@ -165,6 +165,33 @@ loudly with a nonzero exit:
    to the writer), one 8192-doc enrich chunk's device time, launches and
    fetches, the downsample's rows in/out, wall and device time, and the
    median query wall. A dead ingester worker fails the phase.
+3m. The agent deployment, counts zeroed before run_pcap and read after
+   its drain (BASELINE configs 1–2): a capture crafted from a seed with
+   agent/packet.py — 8,000 HTTP/1.1 keep-alive connections, 1,000 gRPC
+   unary ones (HTTP/2 HEADERS + DATA in literal HPACK), 1,000 DNS
+   5-tuples between 2,000 client and 200 server addresses of 3l's pods
+   (1 in 20 outside them), a request every ~3 s on each for 20 s from 5 s
+   before a minute boundary (46,828 requests), 1 response in 20 an
+   error, 1 data segment in 100 resent, 1 connection in 50 reset by the
+   server, half closed with FIN and the rest left to the drain — goes
+   through Agent(device="cuda").run_pcap at the reference's widths
+   (FlowMap 2^16 rows, MinuteAggr 2^16 rows in 4 × 2^12-row batches,
+   2^12-packet batches, l4 log throttle 10,000, a 2^18-row metrics
+   window), its UniformSenders over localhost TCP into one Receiver
+   feeding FlowMetricsIngester and FlowLogIngester over one store,
+   enriched against 3l's platform state. Checks: every module call
+   (FlowMap inject / tick, MinuteAggr, both metric pipelines) replayed on
+   a CPU Agent's modules gives the card's result (ints exact, integer-
+   valued floats below 2^24 bit for bit, the rest within rtol 1e-5); the
+   minute logs equal flowlog/oracle.py's merge of the tick emissions;
+   every drop lane is 0; inject fetches nothing and a tick at most
+   twice; the stored l4_flow_log, l7_flow_log, network_1s and network_1m
+   rows equal the CPU twin's (the card's ingested batches enriched again
+   on the CPU) and one SQL statement a table returns the same result.
+   Each profiled part has the card to itself (the server's enrichment
+   waits, `CardGate`). Printed: packets/s and requests/s of run_pcap, each part
+   of 4 profiled mid-run steps (launches, device ms, idle share), the
+   fetches, the rows written per table and the docs written.
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
@@ -185,7 +212,7 @@ loudly with a nonzero exit:
    run.
 5. One JSON line of each cycle's records/s (with its device idle share
    and kernel launches, and the launches of one fold alone in each fold
-   mode), then one of the kernels (with the card's name and power limit;
+   mode), the agent's packets/s and requests/s, then one of the kernels (with the card's name and power limit;
    each row with ms, device_ms, plain_ms, bound_ms, bound_by and
    library_ms, the segreduce rows also at the fold, merge-fold and
    tier-fold shapes), then the last line
@@ -194,6 +221,7 @@ loudly with a nonzero exit:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -201,6 +229,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -297,7 +326,37 @@ def _dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
 
 
-def device_time(fn, match, launches_per_call: int | None = None) -> tuple[float, float]:
+# Where the profiler's trace came back without the device time after
+# every session, in the order met: the matched kernel name (or "all
+# kernels") of each call whose device time CUDA events took instead.
+PROFILER_GAPS: list[str] = []
+SPIN_CYCLES = 100_000_000  # ~50 ms of spin at the H100's clock
+
+
+def queued_device_ms(fn, counter=None, reps: int = REPS) -> tuple[float, float | None]:
+    """Device time per call from CUDA events around `reps` calls queued
+    behind a spin kernel: the card starts the first call only after the
+    host has queued them all, so the host's launch gaps fall outside the
+    events (the calls' kernels back to back, the gaps between kernels
+    included). Launches per call from the wrapper's `counter`, or None
+    without one."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    n0 = counter() if counter else 0
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    launches = (counter() - n0) / reps if counter else None
+    return a.elapsed_time(b) / reps, launches
+
+
+def device_time(fn, match, launches_per_call: int | None = None,
+                counter=None) -> tuple[float, float | None]:
     """Device time per call of the CUDA kernels whose name holds `match`
     (a string, or None for every kernel the call launches), from
     torch.profiler over REPS calls after a warmup — without the host work
@@ -305,7 +364,11 @@ def device_time(fn, match, launches_per_call: int | None = None) -> tuple[float,
     call. With `launches_per_call` (what the wrapper's counter says a call
     launches), a session whose trace holds another count is taken again:
     the profiler on the card has dropped kernel records (0.55 and 0.95 of
-    the one launch a call in two sessions)."""
+    the one launch a call in two sessions). When four sessions all miss
+    the device time (once, every session of a late phase saw no kernel),
+    CUDA events time the calls queued behind a spin (`queued_device_ms`),
+    the launches come from the wrapper's `counter` (None without one),
+    and the call is listed in PROFILER_GAPS."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -323,11 +386,14 @@ def device_time(fn, match, launches_per_call: int | None = None) -> tuple[float,
         complete = (launches_per_call is None
                     or sum(e.count for e in events) == launches_per_call * REPS)
         if events and sum(_dev_us(e) for e in events) > 0 and complete:
-            break
-    check(events and sum(_dev_us(e) for e in events) > 0,
-          f"the profiler saw no device time for {match}")
-    return (sum(_dev_us(e) for e in events) / 1e3 / REPS,
-            sum(e.count for e in events) / REPS)
+            return (sum(_dev_us(e) for e in events) / 1e3 / REPS,
+                    sum(e.count for e in events) / REPS)
+    PROFILER_GAPS.append(match or "all kernels")
+    print(f"chip_smoke: the profiler missed {match or 'all kernels'} in 4 sessions; "
+          "CUDA events time it", file=sys.stderr, flush=True)
+    dev_ms, launches = queued_device_ms(fn, counter)
+    check(dev_ms > 0, f"no device time for {match}")
+    return dev_ms, launches
 
 
 def host_ms(fn, reps: int = 10 * REPS) -> float:
@@ -462,6 +528,7 @@ def kernel_parity(name: str, ops: dict, *, timed: bool = True) -> dict:
     (`timed`) the call time (CUDA events around the wrapper), the
     kernel's device time (profiler), the library time, and the
     bytes/operations bound of this input."""
+    from deepflow_tpu_torch.ops import segreduce
     from deepflow_tpu_torch.ops.segreduce import (
         sorted_segment_sum_max, sorted_segment_sum_max_plain,
     )
@@ -519,7 +586,9 @@ def kernel_parity(name: str, ops: dict, *, timed: bool = True) -> dict:
     def call():
         return sorted_segment_sum_max(rows, seg, cap, fp, perm=perm)
 
-    dev_ms, dev_launches = device_time(call, "segreduce", launches_per_call=1)
+    dev_ms, dev_launches = device_time(
+        call, "segreduce", launches_per_call=1,
+        counter=lambda: sum(segreduce.LAUNCHES.values()))
     check(dev_launches == 1, f"{name}: {dev_launches} device launches per call")
     return {
         "parity_ok": finite and sum_ok and max_ok, "max_abs_err": max_abs_err,
@@ -586,6 +655,7 @@ def sketch_kernel_parity(dev, *, timed: bool = True, fused=None, **operands) -> 
     kernel vs plain on clones, exact; with `timed`, times and the bytes
     bound of this input."""
     from deepflow_tpu_torch.aggregator import sketchplane as sp
+    from deepflow_tpu_torch.ops import sketch_fused
     from deepflow_tpu_torch.ops.cms import row_slots
     from deepflow_tpu_torch.ops.sketch_fused import (
         sketch_update_fused, sketch_update_fused_plain,
@@ -638,7 +708,8 @@ def sketch_kernel_parity(dev, *, timed: bool = True, fused=None, **operands) -> 
     def plain():
         return sketch_update_fused_plain(h, c, **kw)
 
-    dev_ms, dev_launches = device_time(call, "sketch_fused_kernel", launches_per_call=1)
+    dev_ms, dev_launches = device_time(call, "sketch_fused_kernel", launches_per_call=1,
+                                       counter=lambda: sketch_fused.LAUNCHES["sketch_fused"])
     check(dev_launches == 1, f"sketch_fused: {dev_launches} device launches per call")
 
     # bytes this input needs, at the reference kernel's 4-byte u32/i32
@@ -1115,8 +1186,22 @@ def device_time_each(fn, setup, reps: int = 5) -> tuple[float, float]:
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         dev_ms += sum(_dev_us(e) for e in events) / 1e3
         launches += sum(e.count for e in events)
-    check(dev_ms > 0, "the profiler saw no device time for the tier close")
-    return dev_ms / reps, launches / reps
+    if dev_ms == 0:  # the profiler missed every call: CUDA events, as in device_time
+        PROFILER_GAPS.append("tier close")
+        launches = None
+        for _ in range(reps):
+            args = setup()
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            fn(*args)
+            b.record()
+            b.synchronize()
+            dev_ms += a.elapsed_time(b)
+    check(dev_ms > 0, "no device time for the tier close")
+    return dev_ms / reps, None if launches is None else launches / reps
 
 
 def check_pipeline_run(run: dict) -> None:
@@ -2158,13 +2243,13 @@ def sharded_phase(dev, gpu: str):
 
 # phase 3l: the server deployment. The stream is bench/e2e_ingest.py's:
 # SyntheticFlowGen(5_000, seed=0), 4096 records a second through the
-# port's L4Pipeline, 200,000 docs in frames of 256 docs from 8 agent ids.
+# port's L4Pipeline, 100,000 docs in frames of 256 docs from 8 agent ids.
 # The platform state has the scale of Kubernetes' published large-cluster
 # limits (kubernetes.io "Considerations for large clusters": 5,000 nodes,
 # 150,000 pods): 150,000 pods with one IPv4, one MAC and one gprocess row
 # each, 5,000 node infos and 10,000 pod services; the stream's addresses
 # are the first pods' addresses, so lookups probe the full tables.
-SERVER_DOCS = 200_000
+SERVER_DOCS = 100_000  # depth cut from 200,000 for the command's time (PERF.md §4)
 SERVER_FRAME_DOCS = 256
 SERVER_AGENTS = 8
 SERVER_RECORDS = 4096
@@ -2239,6 +2324,8 @@ def server_platform(gen):
             epc, ip = int(p["epc1"][i - n_t]), int(p["ip1"][i - n_t])
         else:
             epc, ip = 1 + i % 49, 0x0B000000 + i
+            if AGENT_POD0 <= pod < AGENT_POD0 + AGENT_PODS:
+                epc = 0  # phase 3m's pods: the agent reports no EPC
         node = 1 + i % SERVER_NODES
         # one pod in 25 sits in another region (its docs are dropped)
         region = SERVER_REGION + 1 if pod % 25 == 0 else SERVER_REGION
@@ -2294,15 +2381,20 @@ def drain_writer(writer) -> None:
 
 class TeeWriter:
     """Keeps every EnrichedBatch the ingester hands over (for the CPU
-    twin) and passes it on to the DocStoreWriter."""
+    twin) and passes it on to the DocStoreWriter, under one lock: the
+    twin writes the batches in the order the store received them, so
+    both stores hold their rows in one order and float32 sums over them
+    add in one order."""
 
     def __init__(self, writer):
         self.writer = writer
         self.batches = []
+        self.lock = threading.Lock()
 
     def put(self, batch) -> None:
-        self.batches.append(batch)
-        self.writer.put(batch)
+        with self.lock:
+            self.batches.append(batch)
+            self.writer.put(batch)
 
 
 def run_server_stack(state, frames, n_docs: int, root: str) -> dict:
@@ -2638,7 +2730,588 @@ def server_phase(dev, gpu: str):
         "prep_s": {"stream": t_stream, "platform": t_platform},
         "phase_s": time.perf_counter() - t_phase,
     }
-    return launches, ds_parity, summary
+    return launches, ds_parity, summary, plat
+
+
+# phase 3m: the agent deployment (BASELINE configs 1 and 2: a single
+# agent replaying a capture of 10,000 unique 5-tuples, HTTP + gRPC
+# request logs with RED metrics). The capture is crafted here from a
+# seed: 8,000 HTTP/1.1 keep-alive connections, 1,000 gRPC unary ones
+# (HTTP/2 HEADERS + DATA in literal HPACK) and 1,000 DNS 5-tuples between
+# 2,000 client and 200 server addresses, a request every ~3 s on each
+# for 20 s of capture time starting 5 s before a minute boundary. The
+# addresses are 3l's pods AGENT_POD0 … (the agent reports no EPC, so
+# those pods sit in EPC 0), 1 in 20 outside the registry. Widths are
+# the reference's defaults: FlowMap 2^16 rows, MinuteAggr 2^16 rows in
+# 4 × 2^12-row batches, 2^12-packet batches, an l4 log throttle of
+# 10,000; the metrics window holds 2^18 rows (the default 2^14 sheds at
+# 10k flows).
+AGENT_T0 = T0 + 35  # 55 s into its minute
+AGENT_SECONDS = 20  # depth cut from 70 s for the command's time (PERF.md §4)
+AGENT_HTTP = 8_000
+AGENT_GRPC = 1_000
+AGENT_DNS = 1_000
+AGENT_CLIENTS = 2_000
+AGENT_SERVERS = 200
+AGENT_POD0 = 10_001
+AGENT_PODS = 4_400  # the pool the capture draws its addresses from
+AGENT_PERIOD_US = 3_000_000
+AGENT_SEED = 7
+AGENT_PROFILED = 4
+AGENT_TABLES = (("flow_log", "l4_flow_log"), ("flow_log", "l7_flow_log"),
+                ("flow_metrics", "network_1s"), ("flow_metrics", "network_1m"))
+AGENT_SQL = (
+    "SELECT server_port AS sp, Count() AS c, Sum(packet_tx) AS p, Sum(byte_rx) AS b, "
+    "Max(rtt_max) AS r FROM network.1s GROUP BY server_port ORDER BY sp",
+    "SELECT interval(time, 60) AS t, Count() AS c, Sum(packet_tx) AS p, Sum(retrans_tx) AS r "
+    "FROM network.1m GROUP BY interval(time, 60) ORDER BY t",
+    "SELECT server_port AS sp, Count() AS c, Sum(packet_tx) AS p, Sum(retrans_tx) AS r, "
+    "Max(rtt) AS t FROM flow_log.l4_flow_log GROUP BY server_port ORDER BY sp",
+    "SELECT l7_protocol AS p, status_code AS s, Count() AS c, Max(response_duration) AS d "
+    "FROM flow_log.l7_flow_log GROUP BY l7_protocol, status_code ORDER BY p, s",
+)
+
+
+def _h2(ftype: int, flags: int, stream: int, body: bytes) -> bytes:
+    return len(body).to_bytes(3, "big") + bytes([ftype, flags]) + stream.to_bytes(4, "big") + body
+
+
+def _hpack_lit(name_idx: int, value: bytes) -> bytes:
+    return bytes([0x40 | name_idx, len(value)]) + value
+
+
+def agent_capture(scale: float = 1.0) -> dict:
+    """The 3m capture: frames (ts_s, ts_us, bytes) in time order and the
+    request count. `scale` shrinks the connection counts (a CPU
+    rehearsal of the phase); 1.0 is the phase's."""
+    from deepflow_tpu_torch.agent.packet import (TCP_ACK, TCP_FIN, TCP_PSH, TCP_RST, TCP_SYN,
+                                                 craft_tcp, craft_udp)
+
+    rng = np.random.default_rng(AGENT_SEED)
+    n_http, n_grpc, n_dns = (max(1, int(x * scale)) for x in (AGENT_HTTP, AGENT_GRPC, AGENT_DNS))
+    n_tcp, n = n_http + n_grpc, n_http + n_grpc + n_dns
+    pods = AGENT_POD0 + rng.permutation(AGENT_PODS)[:AGENT_CLIENTS + AGENT_SERVERS]
+    addr = (0x0B000000 + pods - 1).astype(np.int64)  # the pods' addresses (server_platform)
+    outside = rng.random(len(addr)) < 0.05  # 1 in 20: 198.18.0.0/15, not registered
+    addr = np.where(outside, 0xC6120000 + np.arange(len(addr)), addr)
+    cli = addr[:AGENT_CLIENTS][rng.integers(0, AGENT_CLIENTS, n)]
+    srv = addr[AGENT_CLIENTS:][rng.integers(0, AGENT_SERVERS, n)]
+    sport = 20_000 + np.arange(n)
+    start = AGENT_T0 * 1_000_000 + rng.integers(0, AGENT_PERIOD_US, n)
+    end = (AGENT_T0 + AGENT_SECONDS) * 1_000_000
+    rtt_c, rtt_s = rng.integers(200, 2_000, n), rng.integers(50, 500, n)
+    close = rng.random(n)  # < 0.02: server RST; < 0.51: FIN; else left open
+    grpc_hdr = b"\x83" + _hpack_lit(4, b"/shop.Cart/Get") + _hpack_lit(31, b"application/grpc")
+    http_resp = {False: b"HTTP/1.1 200 OK\r\nContent-Length: 0\r\n\r\n",
+                 True: b"HTTP/1.1 503 NA\r\nContent-Length: 0\r\n\r\n"}
+    events = []  # (t_us, kind, conn, k)
+    requests = 0
+    for c in range(n):
+        t = int(start[c])
+        last = (end - t - 200_000) // AGENT_PERIOD_US
+        if c >= n_tcp:
+            events += [(t + 10_000 + k * AGENT_PERIOD_US, "q", c, k) for k in range(last)]
+            requests += last
+            continue
+        events += [(t, "syn", c, 0), (t + int(rtt_c[c]), "synack", c, 0),
+                   (t + int(rtt_c[c] + rtt_s[c]), "ack", c, 0)]
+        if close[c] < 0.51 and last > 1:
+            last = int(rng.integers(last // 2, last))
+        requests += last
+        for k in range(last):
+            tk = t + 10_000 + k * AGENT_PERIOD_US + int(rng.integers(0, 100_000))
+            events.append((tk, "req", c, k))
+            events.append((tk + int(rng.integers(300, 5_000)), "resp", c, k))
+            # 1 data segment in 100 is resent: 1 response in 50 (a resent
+            # request would be a second request to the L7 engine, which
+            # reassembles no stream: unanswered, it times out 30 s later
+            # and its RED record falls behind the L7 window)
+            if rng.random() < 0.02:
+                events.append((tk + 200_000, "resp", c, k))
+        t_end = t + 10_000 + last * AGENT_PERIOD_US
+        if close[c] < 0.02:
+            events.append((t_end, "rst", c, last))
+        elif close[c] < 0.51:
+            events += [(t_end, "fin_c", c, last), (t_end + 300, "fin_s", c, last)]
+    events.sort()
+    frames = []
+    for t, kind, c, k in events:
+        a, b, p = int(cli[c]), int(srv[c]), int(sport[c])
+        if c >= n_tcp:  # DNS: query and response, 1 in 20 SERVFAIL
+            q = (k & 0xFFFF).to_bytes(2, "big") + b"\x01\x00\x00\x01\x00\x00\x00\x00\x00\x00" \
+                + b"\x03api\x04shop\x00\x00\x01\x00\x01"
+            r = q[:2] + (b"\x81\x82" if (c + k) % 20 == 0 else b"\x81\x80") + q[4:]
+            frames.append((t // 1_000_000, t % 1_000_000, craft_udp(a, b, p, 53, q)))
+            t2 = t + int(rtt_s[c])
+            frames.append((t2 // 1_000_000, t2 % 1_000_000, craft_udp(b, a, 53, p, r)))
+            continue
+        grpc = c >= n_http
+        dport = 50051 if grpc else 80
+        bad = (c * 31 + k) % 20 == 0
+        if grpc:  # one HTTP/2 stream a call
+            sid = 2 * k + 1
+            req = _h2(1, 4, sid, grpc_hdr) + _h2(0, 1, sid, b"\x00\x00\x00\x00\x04cart")
+            resp = (_h2(1, 4, sid, (b"\x8e" if bad else b"\x88")
+                        + _hpack_lit(31, b"application/grpc"))
+                    + _h2(0, 1, sid, b"\x00\x00\x00\x00\x02ok"))
+        else:
+            req = b"GET /api/items/%04d HTTP/1.1\r\nHost: shop\r\n\r\n" % (c % 10_000)
+            resp = http_resp[bad]
+        cseq, sseq = 1001 + k * len(req), 5001 + k * len(resp)
+        if kind == "syn":
+            f = craft_tcp(a, b, p, dport, flags=TCP_SYN, seq=1000)
+        elif kind == "synack":
+            f = craft_tcp(b, a, dport, p, flags=TCP_SYN | TCP_ACK, seq=5000, ack=1001)
+        elif kind == "ack":
+            f = craft_tcp(a, b, p, dport, flags=TCP_ACK, seq=1001, ack=5001)
+        elif kind == "req":
+            f = craft_tcp(a, b, p, dport, flags=TCP_ACK | TCP_PSH, seq=cseq, ack=sseq, payload=req)
+        elif kind == "resp":
+            f = craft_tcp(b, a, dport, p, flags=TCP_ACK | TCP_PSH, seq=sseq, ack=cseq + len(req),
+                          payload=resp)
+        elif kind == "rst":
+            f = craft_tcp(b, a, dport, p, flags=TCP_RST, seq=sseq)
+        elif kind == "fin_c":
+            f = craft_tcp(a, b, p, dport, flags=TCP_FIN | TCP_ACK, seq=cseq, ack=sseq)
+        else:
+            f = craft_tcp(b, a, dport, p, flags=TCP_FIN | TCP_ACK, seq=sseq, ack=cseq + 1)
+        frames.append((t // 1_000_000, t % 1_000_000, f))
+    frames.sort(key=lambda x: (x[0], x[1]))
+    return {"frames": frames, "requests": requests, "connections": n_tcp, "udp": n_dns,
+            "clients": AGENT_CLIENTS, "servers": AGENT_SERVERS, "outside": int(outside.sum())}
+
+
+class CountingSender:
+    """Counts the messages the agent sends and passes them on to a
+    UniformSender."""
+
+    def __init__(self, sender):
+        self.sender = sender
+        self.sent = 0
+
+    def send(self, msgs) -> None:
+        self.sent += len(msgs)
+        self.sender.send(msgs)
+
+    def close(self) -> None:
+        self.sender.close(drain_timeout=120.0)
+
+
+# the agent's device modules and the calls the CPU twin replays on them
+AGENT_MODULES = {"flow_map": ("inject", "tick"), "flow_aggr": ("ingest", "drain"),
+                 "metrics": ("ingest", "drain"), "l7_metrics": ("ingest", "drain")}
+AGENT_PARTS = {("flow_map", "inject"): "flow_map_inject", ("flow_map", "tick"): "flow_map_tick",
+               ("flow_aggr", "ingest"): "minute_aggr", ("flow_aggr", "drain"): "minute_aggr",
+               ("metrics", "ingest"): "pipelines_ingest", ("metrics", "drain"): "pipelines_ingest",
+               ("l7_metrics", "ingest"): "pipelines_ingest",
+               ("l7_metrics", "drain"): "pipelines_ingest", ("l7", "process"): "l7_engine"}
+
+
+class CardGate:
+    """Gives each profiled agent part the card to itself: the server's
+    enrichment calls (`gated`) wait while a profile is on, and a profile
+    (`exclusive`) waits for the calls in flight — torch.profiler records
+    every thread's kernels and copies."""
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.busy = 0
+        self.profiling = False
+
+    def gated(self, fn):
+        def call(*a):
+            with self.cond:
+                self.cond.wait_for(lambda: not self.profiling)
+                self.busy += 1
+            try:
+                return fn(*a)
+            finally:
+                with self.cond:
+                    self.busy -= 1
+                    self.cond.notify_all()
+
+        return call
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self.cond:
+            self.profiling = True
+            self.cond.wait_for(lambda: self.busy == 0)
+        try:
+            yield
+        finally:
+            with self.cond:
+                self.profiling = False
+                self.cond.notify_all()
+
+
+def tap_agent(agent, profile_steps, gate):
+    """Record every call of the agent's device modules — FlowMap's
+    inject / tick, MinuteAggr's and both pipelines' ingest / drain — with
+    its arguments and result (and FlowMap's fetches per call), the step
+    times, and profile each part of the `profile_steps` steps on the card
+    (one profiler session per call, inside `gate.exclusive()`; the L7
+    engine's host time too). Returns the record."""
+    rec = {"ts": [], "calls": {m: [] for m in AGENT_MODULES}, "inject_fetches": [],
+           "tick_fetches": [], "profiles": {}}
+    step_no = [-1]
+
+    def wrap(module: str, name: str):
+        obj = getattr(agent, module)
+        orig = getattr(obj, name)
+        part = AGENT_PARTS[(module, name)]
+
+        def call(*a):
+            f0 = agent.flow_map.host_fetches
+            if step_no[0] in profile_steps:
+                box = []
+                with gate.exclusive():
+                    prof = profile_cycle(lambda: box.append(orig(*a)))
+                rec["profiles"].setdefault(step_no[0], {}).setdefault(part, []).append(prof)
+                out = box[0]
+            else:
+                out = orig(*a)
+            if module in rec["calls"]:
+                rec["calls"][module].append((name, a, out))
+            if module == "flow_map":
+                rec[f"{name}_fetches"].append(agent.flow_map.host_fetches - f0)
+            return out
+
+        setattr(obj, name, call)
+
+    for module, names in AGENT_MODULES.items():
+        for name in names:
+            wrap(module, name)
+    wrap("l7", "process")
+    orig_step = type(agent).step
+
+    def step(buf, lengths, ts_s, ts_us):
+        step_no[0] += 1
+        rec["ts"].append(int(np.max(ts_s)))
+        return orig_step(agent, buf, lengths, ts_s, ts_us)
+
+    agent.step = step
+    return rec
+
+
+def floats_agree(x, y) -> bool:
+    """Integer-valued floats below 2^24 bit for bit, the rest within rtol
+    1e-5."""
+    x, y = np.asarray(x), np.asarray(y)
+    if x.shape != y.shape:
+        return False
+    exact = (np.abs(y) < 2 ** 24) & (y == np.round(y))
+    return (np.array_equal(x[exact], y[exact])
+            and np.allclose(x[~exact], y[~exact], rtol=SUM_RTOL, atol=0))
+
+
+def same_output(a, b) -> int:
+    """One module call's result card = CPU — a FlowLogBatch, a DocBatch,
+    a (flags, DocBatch) pair or a list of them, None — as the rows it
+    holds (-1 when they differ): ints, tags and times exact, floats by
+    `floats_agree`."""
+    if isinstance(a, tuple):  # (flags, DocBatch)
+        return same_output(a[1], b[1]) if int(a[0]) == int(b[0]) else -1
+    if isinstance(a, list):
+        if len(a) != len(b):
+            return -1
+        rows = [same_output(x, y) for x, y in zip(a, b)]
+        return -1 if -1 in rows else sum(rows)
+    if a is None:
+        return 0 if b is None else -1
+    if hasattr(a, "ints"):  # FlowLogBatch
+        ok = np.array_equal(a.ints, b.ints) and floats_agree(a.nums, b.nums)
+    else:  # DocBatch
+        ok = (np.array_equal(a.timestamp, b.timestamp) and np.array_equal(a.tags, b.tags)
+              and floats_agree(a.meters, b.meters))
+    return a.size if ok else -1
+
+
+def agent_card_run(dev, state, path: str, root: str, n_steps: int, pool) -> dict:
+    """Agent(device=dev).run_pcap over localhost TCP into Receiver →
+    FlowMetricsIngester + FlowLogIngester over one store. Launch counts
+    are zeroed just before run_pcap and read after its drain. The CPU
+    twin (`agent_cpu_twin`) starts on `pool` once run_pcap has returned,
+    while the server is still ingesting."""
+    from deepflow_tpu_torch.agent.main import Agent, AgentConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.flowlog import server as fl_server
+    from deepflow_tpu_torch.flowlog.server import FlowLogIngester
+    from deepflow_tpu_torch.server import flow_metrics
+    from deepflow_tpu_torch.ingest.framing import MessageType
+    from deepflow_tpu_torch.ingest.receiver import Receiver
+    from deepflow_tpu_torch.ingest.sender import UniformSender
+    from deepflow_tpu_torch.server.flow_metrics import FlowMetricsIngester
+    from deepflow_tpu_torch.server.metrics_tables import DocStoreWriter
+    from deepflow_tpu_torch.storage.store import ColumnarStore
+
+    recv = Receiver()
+    recv.start()
+    store = ColumnarStore(root)
+    writer = DocStoreWriter(store)
+    tee = TeeWriter(writer)
+    metrics_ing = FlowMetricsIngester(recv, tee, platform_state=state, n_workers=4,
+                                      queue_capacity=1 << 15, enrich_chunk=SERVER_CHUNK)
+
+    class RecordingIngester(FlowLogIngester):
+        """Keeps every sampled batch it writes (for the CPU twin)."""
+
+        def __init__(self, *a, **kw):
+            self.emitted, self.emit_lock = [], threading.Lock()
+            super().__init__(*a, **kw)
+
+        def _emit(self, mt, sampled, org):
+            with self.emit_lock:
+                self.emitted += [(mt, org, b) for b in sampled]
+            super()._emit(mt, sampled, org)
+
+    log_ing = RecordingIngester(recv, store, platform_state=state, queue_capacity=1 << 16)
+    gate = CardGate()
+    enrich_fns = {mod: mod.enrich_chunk_host for mod in (flow_metrics, fl_server)}
+    for mod, fn in enrich_fns.items():
+        mod.enrich_chunk_host = gate.gated(fn)
+    mts = (MessageType.METRICS, MessageType.TAGGEDFLOW, MessageType.PROTOCOLLOG)
+    cfg = AgentConfig(servers=(("127.0.0.1", recv.tcp_port),), flow_capacity=1 << 16,
+                      batch_size=1 << 12, l4_log_throttle=10_000,
+                      metrics_window=WindowConfig(capacity=STASH_CAPACITY))
+    senders = {mt: CountingSender(UniformSender(list(cfg.servers), mt, agent_id=cfg.agent_id,
+                                           organization_id=cfg.organization_id,
+                                           compression=cfg.compression, queue_capacity=1 << 21))
+               for mt in mts}
+    try:
+        agent = Agent(cfg, senders=senders, device=dev)
+        mid = n_steps // 2
+        rec = tap_agent(agent, profile_steps=range(mid, mid + AGENT_PROFILED), gate=gate)
+        torch.cuda.synchronize()
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        counters = agent.run_pcap(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches()
+        twin = pool.submit(agent_cpu_twin, agent, rec)
+        agent.close()
+        tx = {MessageType(mt).name: s.sender.get_counters() for mt, s in senders.items()}
+        check(all(c["dropped"] == 0 and c["shutdown_shed_msgs"] == 0 for c in tx.values()),
+              f"3m: a sender shed messages {tx}")
+        sent = {MessageType(mt).name: s.sent for mt, s in senders.items()}
+        n_logs = sent["TAGGEDFLOW"] + sent["PROTOCOLLOG"]
+        deadline = time.time() + 600
+        while True:
+            c, lc = metrics_ing.get_counters(), log_ing.get_counters()
+            if (c["docs_in"] == sent["METRICS"]
+                    and c["docs_written"] + c["drop_other_region"] == sent["METRICS"]
+                    and writer.counters["rows"] == c["docs_written"]
+                    and lc["rows_in"] == n_logs and lc["rows_written"] == n_logs):
+                break
+            check(time.time() < deadline, f"3m: the server did not settle {c} {lc} {sent}")
+            time.sleep(0.01)
+        server_s = time.perf_counter() - t0
+        drain_writer(writer)
+        log_ing.flush()
+        for w in list(log_ing._writers.values()):
+            check(w.get_counters()["write_fail"] == 0, "3m: flow-log store writes failed")
+        metrics_counters, log_counters = metrics_ing.get_counters(), log_ing.get_counters()
+    finally:
+        metrics_ing.stop()
+        log_ing.stop()
+        writer.stop()
+        recv.stop()
+        for mod, fn in enrich_fns.items():
+            mod.enrich_chunk_host = fn
+    return {"agent": agent, "rec": rec, "counters": counters, "wall_s": wall, "server_s": server_s,
+            "launches": launches, "twin": twin, "sent": sent, "store": store,
+            "metric_batches": tee.batches,
+            "log_batches": log_ing.emitted, "metrics_ingest": metrics_counters,
+            "log_ingest": log_counters, "senders": tx}
+
+
+def agent_cpu_twin(agent, rec: dict) -> dict:
+    """The agent's device modules again, on the CPU: each module of a CPU
+    Agent of the same config takes the calls the card run recorded — the
+    packet batches and tick times FlowMap took, the emissions MinuteAggr
+    and the metrics pipeline took, the L7 app batches — in their order,
+    and each result must equal the card's. The host parsers and the
+    L7 engine are not run again. The four modules replay in threads of
+    their own (their tensor work releases the GIL). Returns per module
+    the calls and rows compared and the seconds taken."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepflow_tpu_torch.agent.main import Agent
+
+    twin = Agent(agent.config, senders={}, device="cpu")
+
+    def replay(module: str) -> dict:
+        obj = getattr(twin, module)
+        t0 = time.perf_counter()
+        rows = 0
+        for i, (name, args, want) in enumerate(rec["calls"][module]):
+            got = same_output(getattr(obj, name)(*args), want)
+            check(got >= 0, f"3m: {module}.{name} call {i} differs card vs CPU")
+            rows += got
+        return {"calls": len(rec["calls"][module]), "rows": rows,
+                "seconds": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(rec["calls"])) as threads:
+        out = dict(zip(rec["calls"], threads.map(replay, rec["calls"])))
+    out["wall_s"] = time.perf_counter() - t0
+    check(twin.flow_map.get_counters() == agent.flow_map.get_counters(),
+          "3m: FlowMap counters differ card vs CPU")
+    check(twin.flow_aggr.get_counters() == agent.flow_aggr.get_counters(),
+          "3m: MinuteAggr counters differ card vs CPU")
+    return out
+
+
+def write_log_twin(batches, host_state, store) -> None:
+    """The card ingester's sampled flow-log batches enriched again on the
+    CPU and written as the ingester writes them."""
+    from deepflow_tpu_torch.flowlog import server as fl_server
+    from deepflow_tpu_torch.ingest.framing import MessageType
+    from deepflow_tpu_torch.server.flow_metrics import enrich_chunk_host
+    from deepflow_tpu_torch.storage.store import org_db
+    from deepflow_tpu_torch.storage.writer import TableWriter
+
+    writers = {}
+    try:
+        for mt, org, b in batches:
+            schema = fl_server.L4_FLOW_LOG if mt == MessageType.TAGGEDFLOW else fl_server.L7_FLOW_LOG
+            tags, valid, _n = fl_server._tags_for_enrich(b)
+            s0, s1, _keep, _drops = enrich_chunk_host(host_state, tags, valid)
+            key = (org, schema.name)
+            if key not in writers:
+                writers[key] = TableWriter(store, org_db(fl_server.FLOW_LOG_DB, org),
+                                           fl_server.log_table_schema(schema))
+            writers[key].put(fl_server.log_batch_to_columns(b, s0, s1))
+        for w in writers.values():
+            w.flush()
+            check(w.get_counters()["write_fail"] == 0, "3m: twin flow-log writes failed")
+    finally:
+        for w in writers.values():
+            w.stop()
+
+
+def same_stores(card_store, cpu_store, tables) -> dict:
+    rows = {}
+    for db, t in tables:
+        a, b = card_store.scan(db, t), cpu_store.scan(db, t)
+        check(np.array_equal(rows_multiset(a), rows_multiset(b))
+              and strings_of(card_store, db, t) == strings_of(cpu_store, db, t),
+              f"3m: stored rows of {db}.{t} differ card vs CPU")
+        rows[f"{db}.{t}"] = len(next(iter(a.values())))
+    return rows
+
+
+def agent_phase(dev, gpu: str, plat: dict):
+    """Phase 3m: the agent deployment on the card, counts zeroed before
+    its main path (run_pcap and its drain) and read after. Returns
+    (launches, summary)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.agent.pcap import write_pcap
+    from deepflow_tpu_torch.datamodel.code import MeterId
+    from deepflow_tpu_torch.flowlog.oracle import batches_to_dict, minute_merge_oracle
+    from deepflow_tpu_torch.flowlog.schema import L4_FLOW_LOG
+    from deepflow_tpu_torch.querier import QueryEngine
+    from deepflow_tpu_torch.storage.store import ColumnarStore
+
+    t_phase = time.perf_counter()
+    cap = agent_capture()
+    t_craft = time.perf_counter() - t_phase
+    n_packets = len(cap["frames"])
+    n_steps = -(-n_packets // (1 << 12))
+    state = convert.platform_state_from_numpy(plat, dev)
+    host_state = convert.platform_state_from_numpy(plat, "cpu")
+    work = tempfile.mkdtemp(prefix="chip_smoke_agent_")
+    try:
+        path = os.path.join(work, "agent.pcap")
+        write_pcap(path, cap.pop("frames"))
+        pcap_bytes = os.path.getsize(path)
+        with ThreadPoolExecutor(1) as pool:
+            card = agent_card_run(dev, state, path, os.path.join(work, "card"), n_steps, pool)
+            # 1. card = CPU on the device modules (the twin ran beside the server)
+            twin = card["twin"].result()
+        launches = card["launches"]
+        check(launches["segreduce_gather"] > 0 and launches["segreduce_sorted"] == 0
+              and launches["sketch_fused"] == 0, f"3m: agent path launches {launches}")
+        rec, agent = card["rec"], card["agent"]
+        check(card["counters"]["packets"] == n_packets and len(rec["ts"]) == n_steps,
+              f"3m: {card['counters']} for {n_packets} packets")
+        emissions = [out for name, _a, out in rec["calls"]["flow_map"] if name == "tick"]
+        minutes = [b for _n, _a, out in rec["calls"]["flow_aggr"] for b in out]
+
+        # 2. the fetch budget; 3. no drop anywhere
+        check(max(rec["inject_fetches"]) == 0 and max(rec["tick_fetches"]) <= 2,
+              "3m: FlowMap fetch budget")
+        fm, fa = agent.flow_map.get_counters(), agent.flow_aggr.get_counters()
+        pipes = {"metrics": agent.metrics.counters["second"], "l7": agent.l7_metrics.counters}
+        drops = {"flow_map": fm["dropped_overflow"], "minute_aggr": fa["dropped_overflow"],
+                 "minute_late": fa["drop_before_window"],
+                 **{f"{p}.{k}": v for p, c in pipes.items() for k, v in c.items()
+                    if k.startswith("drop_") or k.endswith(("_shed", "_dropped"))}}
+        check(not any(drops.values()), f"3m: drops {drops}")
+
+        # 2. the minute logs are the oracle's merge of the tick emissions
+        want = minute_merge_oracle(L4_FLOW_LOG, emissions)
+        got = batches_to_dict(L4_FLOW_LOG, minutes)
+        check(got.keys() == want.keys(), "3m: minute logs' keys differ from the oracle's")
+        for fields, exact in ((L4_FLOW_LOG.ints, True), (L4_FLOW_LOG.nums, False)):
+            g, w = (np.array([[d[k][f.name] for f in fields] for k in want], np.float64)
+                    for d in (got, want))
+            check(np.array_equal(g, w) if exact else floats_agree(g, w),
+                  "3m: minute logs differ from the oracle's merge")
+
+        # 5. the stores: card = the CPU twin on the four tables, and one
+        # SQL statement a table (the twin enriches the FLOW docs again)
+        t_verify = time.perf_counter()
+        flow = [b for b in card["metric_batches"] if b.decoded.meter_id == int(MeterId.FLOW)]
+        cpu_store = cpu_twin(flow, host_state, os.path.join(work, "cpu"))["store"]
+        write_log_twin(card["log_batches"], host_state, cpu_store)
+        stored = same_stores(card["store"], cpu_store, AGENT_TABLES)
+        check(min(stored.values()) > 0, f"3m: a table is empty {stored}")
+        card_eng = QueryEngine(card["store"], cache=False, device=dev)
+        cpu_eng = QueryEngine(cpu_store, cache=False, device="cpu")
+        for sql in AGENT_SQL:
+            res = card_eng.execute(sql)
+            check(res.rows > 0, f"3m: no rows from {sql}")
+            same_result(res, cpu_eng.execute(sql), sql)
+        verify_s = time.perf_counter() - t_verify
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def part_sum(profs, f):
+        return sum(p[f] for p in profs)
+
+    steps = {}
+    for s, parts in sorted(rec["profiles"].items()):
+        steps[s] = {}
+        for part, profs in parts.items():
+            wall, busy = part_sum(profs, "wall_ms"), part_sum(profs, "device_busy_ms")
+            steps[s][part] = {"calls": len(profs), "wall_ms": wall, "device_ms": busy,
+                              "idle_share": (1 - busy / wall) if wall else None,
+                              "launches": part_sum(profs, "kernel_launches"),
+                              "copies": {d: sum(p["copies"][d] for p in profs)
+                                         for d in ("DtoH", "HtoD")}}
+    summary = {
+        "gpu": gpu, "packets": n_packets, "pcap_bytes": pcap_bytes, "steps": n_steps,
+        **{k: cap[k] for k in ("requests", "connections", "udp", "clients", "servers", "outside")},
+        "run_pcap_s": card["wall_s"], "packets_per_s": n_packets / card["wall_s"],
+        "requests_per_s": cap["requests"] / card["wall_s"],
+        "until_stored_s": card["server_s"], "agent_counters": card["counters"],
+        "flow_map": fm, "minute_aggr": fa, "card_vs_cpu": twin, "messages": card["sent"],
+        "fetches": {"per_inject_max": max(rec["inject_fetches"]),
+                    "per_tick_max": max(rec["tick_fetches"]),
+                    "per_tick_mean": statistics.mean(rec["tick_fetches"])},
+        "stored_rows": stored, "docs_written": card["metrics_ingest"]["docs_written"],
+        "metrics_ingest": card["metrics_ingest"], "log_ingest": card["log_ingest"],
+        "profiled_steps": steps, "launches": launches,
+        "cpu_twin_s": twin["wall_s"], "verify_stores_s": verify_s, "craft_s": t_craft,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return launches, summary
 
 
 def load_other_port(path: str):
@@ -2914,8 +3587,16 @@ def main() -> int:
 
     # 3l. the server deployment: receiver → decode → device enrichment →
     # columnar store → downsampler → SQL (server_phase)
-    main_server, ds_parity, server_summary = server_phase(dev, gpu)
+    main_server, ds_parity, server_summary, plat = server_phase(dev, gpu)
     emit({"phase": "server", **server_summary})
+    torch.cuda.empty_cache()
+
+    # 3m. the agent deployment: pcap replay → parse → FlowMap → L7 engine
+    # → metric pipelines + minute flow logs → senders → the server's
+    # metrics and flow-log ingesters over one store (agent_phase)
+    main_agent, agent_summary = agent_phase(dev, gpu, plat)
+    emit({"phase": "agent", **agent_summary})
+    del plat
     torch.cuda.empty_cache()
 
     # 3g. the counter ring and async drain at full width: the 3c stream,
@@ -3088,7 +3769,7 @@ def main() -> int:
             "launches_sharded": main_sharded[k],
             "launches_sharded_checkpoint": main_sharded_ckpt[k],
             "launches_sharded_cascade": main_sharded_casc[k],
-            "launches_server": main_server[k],
+            "launches_server": main_server[k], "launches_agent": main_agent[k],
         })
     # the server path's downsample group-by (fused gather only)
     check(kernels[0]["name"] == "segreduce_gather", "kernels line order")
@@ -3109,7 +3790,7 @@ def main() -> int:
         "launches_sharded": main_sharded[sk_name],
         "launches_sharded_checkpoint": main_sharded_ckpt[sk_name],
         "launches_sharded_cascade": main_sharded_casc[sk_name],
-        "launches_server": main_server[sk_name],
+        "launches_server": main_server[sk_name], "launches_agent": main_agent[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
@@ -3169,6 +3850,14 @@ def main() -> int:
                       "downsample": {k: sv["downsample"][k] for k in (
                           "rows_in", "rows_out", "wall_ms", "device_ms")},
                       "query_ms_median": sv["query_ms"]["median"]}))
+    ag = agent_summary
+    for metric, unit in (("packets", "packets/s"), ("requests", "requests/s")):
+        print(json.dumps({"metric": f"port_agent_{metric}_per_sec",
+                          "value": ag[f"{metric}_per_s"], "unit": unit, "gpu": gpu,
+                          "packets": ag["packets"], "requests": ag["requests"],
+                          "run_pcap_s": ag["run_pcap_s"], "fetches": ag["fetches"],
+                          "stored_rows": ag["stored_rows"], "docs_written": ag["docs_written"]}))
+    print(json.dumps({"phase": "profiler_gaps", "gaps": PROFILER_GAPS}))
     print(json.dumps({"gpu": gpu, "kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

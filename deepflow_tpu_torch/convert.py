@@ -23,6 +23,16 @@ crosses the same way: its info and gprocess matrices, the six hash
 tables' lanes with their measured `max_probes`, and the region id. Its
 numpy form is a dict; `platform_state_from_numpy` also takes the
 reference's PlatformState itself, reading each field with `np.asarray`.
+
+The flow-log stash (`flowlog.aggr.LogStashState`: the minute merge's
+state, and the agent FlowMap's flow table) crosses as the reference's
+LogStashState fields (uint32 slot/key/int lanes, f32 nums, bool valid,
+int32 dropped_overflow); `log_stash_from_numpy` also takes the
+reference's state itself. A FlowMap's state is its stash plus its
+host-side `seq_tracker` (the per-flow seq interval lists, in their dict
+order, which the tracker's eviction reads): `flow_map_state_to_numpy` /
+`flow_map_state_from_numpy` carry both, so a test can start the two
+packages' maps from one state.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from .aggregator.sketchplane import SENTINEL_WIN, SketchState
 from .aggregator.stash import AccumState, StashState
 from .device import resolve_device
 from .enrich.platform import TABLES, PlatformState
+from .flowlog.aggr import LogStashState
 from .ops.hashtable import table_from_lanes
 from .ops.u32 import from_numpy_u32, to_numpy_u32
 
@@ -212,3 +223,49 @@ def platform_state_to_numpy(state: PlatformState) -> dict:
                      "filled": t.filled.detach().cpu().numpy(),
                      "max_probes": int(t.max_probes)}
     return out
+
+
+_LOG_LANES = ("slot", "key_hi", "key_lo", "ints")
+
+
+def log_stash_from_numpy(src, device=None) -> LogStashState:
+    """A flow-log stash in numpy form — or the reference's LogStashState
+    — → the port's LogStashState on `device`, bit for bit."""
+    dev = resolve_device(device)
+    return LogStashState(
+        **{k: from_numpy_u32(np.asarray(_field(src, k)), dev) for k in _LOG_LANES},
+        nums=torch.from_numpy(np.array(_field(src, "nums"), np.float32)).to(dev),
+        valid=torch.from_numpy(np.array(_field(src, "valid"), bool)).to(dev),
+        dropped_overflow=torch.tensor(int(np.asarray(_field(src, "dropped_overflow"))),
+                                      dtype=torch.int64, device=dev),
+    )
+
+
+def log_stash_to_numpy(state: LogStashState) -> dict:
+    """The port's LogStashState → the reference's arrays (uint32 lanes,
+    f32 nums, bool valid, int32 dropped_overflow)."""
+    out = {k: to_numpy_u32(getattr(state, k)) for k in _LOG_LANES}
+    out["nums"] = state.nums.detach().cpu().numpy()
+    out["valid"] = state.valid.detach().cpu().numpy()
+    out["dropped_overflow"] = np.int32(int(state.dropped_overflow))
+    return out
+
+
+def _copy_tracker(tracker: dict) -> dict:
+    """A seq_tracker copy in the same dict order, intervals as tuples."""
+    return {k: (a, [tuple(iv) for iv in ivals]) for k, (a, ivals) in tracker.items()}
+
+
+def flow_map_state_to_numpy(fm) -> dict:
+    """A port FlowMap's state → {"stash": numpy stash, "seq_tracker":
+    copy}."""
+    return {"stash": log_stash_to_numpy(fm.state), "seq_tracker": _copy_tracker(fm.seq_tracker)}
+
+
+def flow_map_state_from_numpy(fm, src):
+    """Load a FlowMap state ({"stash": numpy stash or the reference's
+    LogStashState, "seq_tracker": dict}) into the port FlowMap `fm`, on
+    its device. Returns `fm`."""
+    fm.state = log_stash_from_numpy(src["stash"], fm.device)
+    fm.seq_tracker = _copy_tracker(src["seq_tracker"])
+    return fm

@@ -813,7 +813,17 @@ def _segment_reduce(v: np.ndarray, gid: np.ndarray, num_segments: int, op: str,
     the [num_segments] float32 result on the host."""
     x = torch.from_numpy(np.asarray(v, np.float64).astype(np.float32)).to(device)
     ids = torch.from_numpy(np.asarray(gid, np.int64)).to(device)
-    if op == "sum":
+    if op == "sum" and x.is_cuda:
+        # float32 sums depend on their order. On the card, index_add_'s
+        # atomics and a 1-wide index_put_ (a warp-parallel kernel) reorder
+        # a segment's rows; a 2-wide index_put_ with accumulate takes the
+        # sort-based kernel that adds them one by one in row order — the
+        # CPU's and the reference's order, bit for bit
+        # (tests/test_torch_cuda.py pins it)
+        out = torch.zeros((num_segments, 2), dtype=torch.float32, device=device)
+        out.index_put_((ids,), torch.stack([x, torch.zeros_like(x)], dim=1), accumulate=True)
+        out = out[:, 0]
+    elif op == "sum":
         out = torch.zeros(num_segments, dtype=torch.float32, device=device)
         out.index_add_(0, ids, x)
     else:

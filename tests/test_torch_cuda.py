@@ -841,3 +841,138 @@ def test_downsampler_card_matches_cpu(cuda):
                 np.testing.assert_allclose(card[k], host[k], rtol=1e-5, err_msg=k)
             else:
                 assert np.array_equal(card[k], host[k]), k
+
+
+def _log_rows(rng, n, schema, *, slots=3, keys=400):
+    """Merge rows for a flow-log stash: few (slot, key) pairs so
+    segments span stash and batch, random u32 ints (OR lanes with high
+    bits), integer-valued f32 nums below 2^24."""
+    k = rng.integers(0, keys, n)
+    return (rng.integers(0, slots, n).astype(np.uint32),
+            (k * 2654435761 % (1 << 32)).astype(np.uint32), (k % 7).astype(np.uint32),
+            rng.integers(0, 2 ** 32, (n, len(schema.ints)), dtype=np.uint64).astype(np.uint32),
+            np.floor(rng.random((n, len(schema.nums))) * 1e4).astype(np.float32),
+            rng.random(n) < 0.9)
+
+
+@pytest.mark.cuda
+def test_log_stash_merge_and_minute_aggr_card_match_cpu(cuda):
+    """The flow-log merge (3 merges past capacity, then every minute
+    flushed) and a MinuteAggr stream with a drain on the card equal the
+    CPU's lane for lane."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.flowlog import aggr
+    from deepflow_tpu_torch.flowlog.schema import L4_FLOW_LOG
+
+    rng = np.random.default_rng(21)
+    states = {d: aggr.log_stash_init(1024, L4_FLOW_LOG, d) for d in (cuda, "cpu")}
+    for _ in range(3):
+        rows = _log_rows(rng, 512, L4_FLOW_LOG)
+        for d in states:
+            states[d] = aggr.log_stash_merge(states[d], *aggr.upload_rows(*rows, d), L4_FLOW_LOG)
+    card, host = (convert.log_stash_to_numpy(states[d]) for d in (cuda, "cpu"))
+    for k in host:
+        assert np.array_equal(card[k], host[k]), k
+    for minute in range(3):
+        outs = {}
+        for d in states:
+            states[d], out = aggr._log_flush(states[d], minute)
+            n = int(out["count"])
+            outs[d] = aggr.pack_rows(out["ints"][:n], out["nums"][:n]).cpu().numpy()
+        assert np.array_equal(outs[cuda], outs["cpu"]) and len(outs["cpu"])
+
+    ma = {d: aggr.MinuteAggr(capacity=4096, batch_size=2048, device=d) for d in (cuda, "cpu")}
+    got = {d: [] for d in ma}
+    for b in range(6):
+        n = 2048
+        ints = rng.integers(0, 1 << 16, (n, len(L4_FLOW_LOG.ints))).astype(np.uint32)
+        flow = rng.integers(0, 900, n)
+        ints[:, L4_FLOW_LOG.int_index("flow_id_hi")] = flow * 7919
+        ints[:, L4_FLOW_LOG.int_index("flow_id_lo")] = flow
+        ints[:, L4_FLOW_LOG.int_index("end_time")] = 1_700_000_000 + 30 * b + rng.integers(0, 20, n)
+        nums = np.floor(rng.random((n, len(L4_FLOW_LOG.nums))) * 1e3).astype(np.float32)
+        for d in ma:
+            got[d] += ma[d].ingest(aggr.FlowLogBatch(L4_FLOW_LOG, ints, nums, np.ones(n, bool)))
+    for d in ma:
+        got[d] += ma[d].drain()
+    assert len(got[cuda]) == len(got["cpu"]) > 1
+    for g, w in zip(got[cuda], got["cpu"]):
+        assert np.array_equal(g.ints, w.ints) and np.array_equal(g.nums, w.nums)
+    assert ma[cuda].get_counters() == ma["cpu"].get_counters()
+
+
+@pytest.mark.cuda
+def test_flow_map_tick_card_matches_cpu(cuda):
+    """FlowMap inject + tick over crafted TCP/UDP sessions (FIN, RST,
+    resends, a handshake across the 2^32 µs wrap) on the card equals the
+    CPU's: every emission, the table lane for lane, the seq_tracker;
+    inject fetches nothing and a tick at most twice."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.agent import flow_map, packet
+    from deepflow_tpu_torch.agent.packet import TCP_ACK, TCP_FIN, TCP_PSH, TCP_RST, TCP_SYN
+
+    t0 = next(s for s in range(1_700_000_000, 1_700_010_000)
+              if (s * 1_000_000) % (1 << 32) > (1 << 32) - 900_000)
+    us0 = (1 << 32) - 100 - (t0 * 1_000_000) % (1 << 32)
+    srv = 0x0A000002
+    steps = []
+    for t in range(4):
+        pkts, us = [], []
+        for c in range(300):
+            cli, sport = 0x0A010000 + c % 97, 30000 + c
+            if t == 0:
+                pkts += [packet.craft_tcp(cli, srv, sport, 443, flags=TCP_SYN, seq=1),
+                         packet.craft_tcp(srv, cli, 443, sport, flags=TCP_SYN | TCP_ACK, seq=9,
+                                          ack=2),
+                         packet.craft_tcp(cli, srv, sport, 443, flags=TCP_ACK, seq=2, ack=10)]
+                us += [us0, us0 + 300 + c, us0 + 500 + c]
+            seq = 2 + 100 * t if c % 11 else 2  # every 11th resends its first segment
+            pkts.append(packet.craft_tcp(cli, srv, sport, 443, flags=TCP_ACK | TCP_PSH, seq=seq,
+                                         payload=b"x" * 100))
+            us.append(us0 + 600)
+            if t == 2 and c % 7 == 0:
+                flags = TCP_RST if c % 2 else TCP_FIN | TCP_ACK
+                pkts += [packet.craft_tcp(cli, srv, sport, 443, flags=flags, seq=seq + 100),
+                         packet.craft_tcp(srv, cli, 443, sport, flags=flags, seq=10)]
+                us += [us0 + 700, us0 + 800]
+            if c % 13 == 0:
+                pkts.append(packet.craft_udp(cli, srv, 5000 + c, 53, b"q" * 20))
+                us.append(us0 + 50)
+        steps.append((pkts, us, t0 + t))
+    maps = {d: flow_map.FlowMap(capacity=2048, batch_size=2048, device=d) for d in (cuda, "cpu")}
+    for pkts, us, t in steps:
+        p = packet.parse_packets(*packet.to_batch(pkts, [t] * len(pkts), us))
+        out = {}
+        for d, m in maps.items():
+            before = m.host_fetches
+            m.inject(p)
+            assert m.host_fetches == before
+            out[d] = m.tick(t + 1)
+            assert m.host_fetches - before <= 2
+        assert out[cuda].size == out["cpu"].size > 0
+        assert np.array_equal(out[cuda].ints, out["cpu"].ints)
+        assert np.array_equal(out[cuda].nums, out["cpu"].nums)
+        card, host = (convert.flow_map_state_to_numpy(maps[d]) for d in (cuda, "cpu"))
+        for k in host["stash"]:
+            assert np.array_equal(card["stash"][k], host["stash"][k]), k
+        assert list(card["seq_tracker"].items()) == list(host["seq_tracker"].items())
+    drained = {d: m.drain(t0 + 99) for d, m in maps.items()}
+    assert np.array_equal(drained[cuda].ints, drained["cpu"].ints)
+    assert maps[cuda].get_counters() == maps["cpu"].get_counters()
+
+
+@pytest.mark.cuda
+def test_sql_float32_sums_card_equal_cpu(cuda):
+    """The SQL engine's float32 segment sums add each segment's rows in
+    row order on the card too, so a 200,000-row group sums to the CPU's
+    (and the reference's) float32 value bit for bit; max and min agree."""
+    from deepflow_tpu_torch.querier.engine import _segment_reduce
+
+    rng = np.random.default_rng(13)
+    for n, g in ((200_000, 1), (60_000, 4), (100_000, 5000)):
+        v = rng.random(n) * 1e5
+        gid = rng.integers(0, g, n)
+        for op in ("sum", "amax", "amin"):
+            card = _segment_reduce(v, gid, g + 1, op, cuda)
+            host = _segment_reduce(v, gid, g + 1, op, torch.device("cpu"))
+            assert np.array_equal(card, host), (n, g, op)

@@ -52,7 +52,13 @@ def test_port_and_chip_smoke_import_no_jax():
                 "server.flow_metrics", "server.metrics_tables", "server.datasource",
                 "storage", "storage.store", "storage.writer", "storage.flow_tag", "querier",
                 "querier.engine", "querier.live", "querier.sqlparse", "querier.translation",
-                "querier.metrics"):
+                "querier.metrics", "flowlog", "flowlog.schema", "flowlog.aggr",
+                "flowlog.codec", "flowlog.oracle", "flowlog.server", "agent", "agent.packet",
+                "agent.pcap", "agent.dispatcher", "agent.possible", "agent.flow_map",
+                "agent.bridge", "agent.policy", "agent.capture", "agent.main", "agent.l7",
+                "agent.l7.engine", "agent.l7.http2", "agent.l7.parsers", "agent.l7.parsers_ext",
+                "agent.l7.parsers_mq", "agent.l7.parsers_rpc", "agent.l7.parsers_w4",
+                "agent.l7.plugins", "ingest.sender"):
         assert f"deepflow_tpu_torch.{mod}" in result["imported"]
     forbidden = [m for m in result["modules"] if _is_forbidden(m)]
     assert forbidden == []
