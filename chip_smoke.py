@@ -7,7 +7,8 @@
 Needs one CUDA device and the CUDA toolkit (nvcc). Phases, each failing
 loudly with a nonzero exit:
 
-1. Device line (`nvidia-smi` name + power limit, torch CUDA version) and
+1. Device line (`nvidia-smi` name + power limit, torch CUDA version,
+   `utils/provenance.bench_provenance()`) and
    the kernel build from the sources in this checkout (one nvcc per
    source, started together) into deepflow_tpu_torch/_build/.
 2. Kernel parity at the full-width main-path shapes: every segmented-
@@ -192,6 +193,31 @@ loudly with a nonzero exit:
    waits, `CardGate`). Printed: packets/s and requests/s of run_pcap, each part
    of 4 profiled mid-run steps (launches, device ms, idle share), the
    fetches, the rows written per table and the docs written.
+3n. Self-observability, counts zeroed before its main path (below) and
+   read after: the standalone sketch functions (ops/{hll,cms,histogram,
+   tdigest,topk}.py: init, update, merge, estimate / query / quantiles,
+   t-digests) at tests/test_sketches.py's sizes and the production
+   widths (HLL p = 14, count-min 4 × 2^16, top-K 2 × 1024), card against
+   CPU — integer lanes exact (the histogram by 4b's adjacent-bin rule),
+   floats within rtol 1e-5; 3c's slab L4Pipeline over 3f's first four
+   seconds (2^21-row batches) and a drain with DEEPFLOW_SHARED_SORT=0
+   and =1 — identical windows and sketch blocks, the census's plane
+   sorts 2 × topk_rows and 1, no sketch_fused launch under the oracle;
+   3f's L4Pipeline (slab plane, minute + hour cascade) built on an
+   emptied cache and fed the same batches — Σ ledger bytes ≤ the growth
+   of torch.cuda.memory_allocated, the gap within the allocator's
+   rounding of the plane blocks plus the named tensors that are not
+   planes (the allocator's block table, `torch.cuda.memory_snapshot`),
+   a ledger snapshot with no fetch and no device→host copy in its
+   profiler trace, per-plane bytes with their ratio to the reference's
+   (REF_PLANE_BYTES_3N); a small save's checkpoint_scratch watermark;
+   the pipeline, its spans, the ledger and the step census through a
+   collector tick into deepflow_system, read back by the SQL engine on
+   the card bit for bit; a closed block's sketch rows against the
+   tensor t-digest on the card; telemetry() of the pipeline and of a
+   4-shard ShardedWindowManager at 3k's shape over three of the
+   batches (bytes per device = bytes / 4). Printed with the phase's
+   wall seconds.
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
@@ -645,7 +671,7 @@ def sketch_operands(dev, sk=None, fb=None, sw: int | None = None):
     x = plane_batch(fb)
     _, in_c, _ = sp.phase_masks(sk, window=x["window"], valid=x["valid"],
                                 base_w=x["base_w"], close_w=x["close_w"])
-    presorted = sp.shared_sort(x["window"], x["key_hi"], x["key_lo"])
+    presorted = sp.batch_sort(x["window"], x["key_hi"], x["key_lo"])
     return cfg, sk, sp.fused_operands(sk, in_c, presorted=presorted, **x)
 
 
@@ -1983,7 +2009,7 @@ def shard_parity(swm, fb) -> dict:
     window = tags["timestamp"]
     _, in_c, _ = sp.phase_masks(sk, window=window, valid=valid, base_w=swm.start_window,
                                 close_w=0)
-    presorted = sp.shared_sort(window, inp["key_hi"], inp["key_lo"])
+    presorted = sp.batch_sort(window, inp["key_hi"], inp["key_lo"])
     kw = sp.fused_operands(sk, in_c, window=window, presorted=presorted, **inp)
     return {"segreduce_gather": fold_parity(swm.stash[0], swm.acc[0]),
             "sketch_fused": sketch_kernel_parity(None, timed=False, fused=(cfg, sk, kw))}
@@ -3314,6 +3340,456 @@ def agent_phase(dev, gpu: str, plat: dict):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# 3n. self-observability: the standalone sketch functions, the multi-sort
+# oracle, the device-memory ledger against the allocator, the dogfood
+# loop into deepflow_system, telemetry() and provenance
+
+SELFOBS_SECONDS = [34, 35, 36, 37]  # 3f's first seconds: two advances, a tier-0 step each
+SELFOBS_SHARDED_SECONDS = [34, 35, 37]
+FLOAT_RTOL = 1e-5
+# The reference's bytes per plane of 3n's ledger pipeline (3f's config
+# after SELFOBS_SECONDS: both tier rings are sized at the first advance),
+# read from the reference's own WindowManager.device_planes() through its
+# plane_bytes by tests/test_torch_profiling.py::
+# test_reference_plane_bytes_of_selfobs (the card has no JAX).
+REF_PLANE_BYTES_3N = {"stash": 104071172, "accumulator": 103809024, "sketch": 19415160,
+                      "cascade": 623378456, "lanes": 20}
+# The caching allocator's block rule (c10/core/AllocatorConfig.h): a
+# request is rounded up to kMinBlockSize; a cached block larger than that
+# is split only when the remainder is at least kMinBlockSize (the small
+# pool, requests up to kSmallSize) or more than kSmallSize (the large
+# pool). So a block exceeds its request by at most the rounding plus 511 B
+# (small) or plus 1 MiB (large).
+K_MIN_BLOCK_SIZE = 512
+K_SMALL_SIZE = 1 << 20
+# CUDA tensors 3n's ledger pipeline may allocate outside its planes: the
+# sketch kernel's scratch tables, made at the first call at a shape
+# (earlier phases have usually made them already).
+NON_PLANE_TENSORS = ("sketch_fused._TABLES",)
+
+
+def sketch_fn_results(dev, hist_in=None) -> tuple[dict, dict, torch.Tensor]:
+    """The standalone sketch functions on `dev`, at tests/test_sketches.py's
+    sizes (HLL 200,000 draws of 100,000 ids; count-min 50,000 Zipf keys at
+    4 × 2^14; log-histogram 100,000 lognormal values in 1024 bins) and at
+    the production plane widths (HLL precision 14; count-min 4 × 2^16;
+    top-K 2 × 1024 in a 4-slot ring over three 50,000-row batches):
+    init, update, merge and estimate / query / quantiles, t-digests from
+    the histogram, of raw values and their merge. Returns (integer
+    results, float results, the histogram). The histogram's downstream
+    functions read `hist_in` when given (the CPU's histogram: CUDA logf
+    may move a value to an adjacent bin, phase 4b)."""
+    from deepflow_tpu_torch.ops import cms, histogram, hll, tdigest, topk
+    from deepflow_tpu_torch.ops.u32 import from_numpy_u32
+
+    rng = np.random.default_rng(11)
+    u32 = lambda x: from_numpy_u32(np.asarray(x, np.uint32), dev)
+    t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)
+    ints, floats = {}, {}
+    ids = rng.integers(0, 100_000, 200_000).astype(np.uint64)
+    hi, lo = u32((ids * 2654435761) & 0xFFFFFFFF), u32((ids * 40503 + 7) ^ 0x9E3779B9)
+    gid, valid = t(np.arange(200_000) % 4), t(rng.random(200_000) > 0.05)
+    a = hll.hll_update(hll.hll_init(4, 14, device=dev), gid, hi, lo, valid)
+    b = hll.hll_update(hll.hll_init(4, 14, device=dev), gid, lo, hi, valid)
+    ints["hll"] = hll.hll_merge(a, b)
+    floats["hll_estimate"] = hll.hll_estimate(ints["hll"])
+    keys = (rng.zipf(1.3, 50_000) % 1000).astype(np.uint64)
+    k_hi, k_lo = u32((keys * 2654435761 + 1) & 0xFFFFFFFF), u32(keys ^ 0x9E3779B9)
+    w = t(rng.integers(1, 50, 50_000).astype(np.int32))
+    kv = t(rng.random(50_000) > 0.05)
+    for width in (1 << 14, 1 << 16):
+        plane = cms.cms_update(cms.cms_init(4, width, device=dev), k_hi, k_lo, w, kv)
+        plane = cms.cms_merge(plane, cms.cms_update(cms.cms_init(4, width, device=dev), k_lo,
+                                                    k_hi, w, kv))
+        ints[f"cms_{width}"] = plane
+        ints[f"cms_query_{width}"] = cms.cms_query(plane, k_hi, k_lo)
+    spec = histogram.LogHistSpec(bins=1024, vmin=1.0, gamma=1.02)
+    vals = t(rng.lognormal(6.0, 1.5, 100_000).astype(np.float32))
+    hg, hv = t(rng.integers(0, 4, 100_000)), t(rng.random(100_000) > 0.05)
+    hist = histogram.loghist_update(histogram.loghist_init(4, spec, device=dev), hg, vals, hv,
+                                    spec)
+    hist = histogram.loghist_merge(hist, hist)
+    h = hist if hist_in is None else hist_in.to(dev)
+    floats["loghist_quantiles"] = histogram.loghist_quantiles(h, spec, (0.5, 0.95, 0.99))
+    m, wt = tdigest.tdigest_from_loghist(h, spec)
+    floats.update(tdigest_means=m, tdigest_weights=wt)
+    raw = [tdigest.tdigest_compress(t(rng.gamma(2.0, 300.0, 20_000).astype(np.float32)),
+                                    torch.ones(20_000, device=dev), compression=100)
+           for _ in range(2)]
+    mm, mw = tdigest.tdigest_merge(*raw[0], *raw[1], compression=100)
+    qs = torch.tensor([0.01, 0.5, 0.9, 0.99], device=dev)
+    floats.update(merged_means=mm, merged_weights=mw,
+                  merged_quantiles=tdigest.tdigest_quantile(mm, mw, qs),
+                  hist_quantiles=tdigest.tdigest_quantile(m[0], wt[0], qs))
+    lanes = topk.topk_init(2, 1024, 4, device=dev)
+    for _ in range(3):
+        kid = (rng.zipf(1.2, 50_000) % 20_000).astype(np.uint64)
+        lanes = topk.topk_update(
+            lanes, t(rng.integers(-1, 5, 50_000)), u32((kid * 2654435761 + 1) & 0xFFFFFFFF),
+            u32(kid ^ 0x9E3779B9), u32(kid), u32(rng.integers(0, 2 ** 32, 50_000)),
+            t(rng.integers(0, 900, 50_000).astype(np.int32)), t(rng.random(50_000) > 0.1))
+    ints.update({f"topk_{k}": x for k, x in zip(("votes", "hi", "lo", "ia", "ib"), lanes)})
+    return ints, floats, hist
+
+
+def hist_moves(card: torch.Tensor, host: torch.Tensor) -> int:
+    """Counts a histogram moved between bins card against CPU (4b's
+    rule): group totals equal, and a count only moves to an adjacent bin
+    (the prefix sums of the difference then add up to exactly half its
+    L1 norm)."""
+    d = (card.cpu() - host).numpy().astype(np.int64)
+    check(np.array_equal(d.sum(axis=1), np.zeros(d.shape[0])),
+          "3n: log-histogram group totals differ card vs CPU")
+    crossings = int(np.abs(np.cumsum(d, axis=1)).sum())
+    check(2 * crossings == int(np.abs(d).sum()),
+          "3n: a histogram count moved further than one bin card vs CPU")
+    return crossings
+
+
+def sketch_fns_card_vs_cpu(dev) -> dict:
+    host_i, host_f, host_h = sketch_fn_results(torch.device("cpu"))
+    card_i, card_f, card_h = sketch_fn_results(dev, hist_in=host_h)
+    for k, v in host_i.items():
+        check(torch.equal(card_i[k].cpu(), v), f"3n: {k} differs card vs CPU")
+    err = 0.0
+    for k, v in host_f.items():
+        c = card_f[k].cpu()
+        check(c.shape == v.shape and bool(torch.isfinite(c).all()), f"3n: {k} shape/finite")
+        rel = ((c - v).abs() / v.abs().clamp(min=1e-30)).max().item() if v.numel() else 0.0
+        check(rel <= FLOAT_RTOL, f"3n: {k} rel err {rel} > {FLOAT_RTOL}")
+        err = max(err, rel)
+    return {"integer_lanes_exact": len(host_i), "float_results": len(host_f),
+            "float_max_rel_err": err, "hist_counts_moved": hist_moves(card_h, host_h)}
+
+
+def selfobs_pipeline(dev, sk_cfg, cascade=None):
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+
+    return L4Pipeline(PipelineConfig(
+        window=WindowConfig(capacity=STASH_CAPACITY, accum_batches=ACCUM_BATCHES, delay=DELAY,
+                            sketch=sk_cfg, cascade=cascade),
+        batch_size=BATCH, batch_unique_cap=UNIQUE_CAP), device=dev)
+
+
+def oracle_runs(dev, batches, sk_cfg) -> tuple[dict, list]:
+    """3c's slab L4Pipeline over `batches` and a drain with
+    DEEPFLOW_SHARED_SORT=0 (the multi-sort oracle) and =1: identical
+    windows and sketch blocks; the census reads the plane's sorts."""
+    runs = {}
+    for knob in ("0", "1"):
+        os.environ["DEEPFLOW_SHARED_SORT"] = knob
+        before = all_launches()
+        pipe = selfobs_pipeline(dev, sk_cfg)
+        docs = [db for fb in batches for db in pipe.ingest(fb)] + pipe.drain()
+        torch.cuda.synchronize()
+        (row,) = pipe.profile_snapshot()["census"]
+        runs[knob] = {"docs": docs, "blocks": pipe.pop_closed_sketches(), "census": row,
+                      "launches": {k: v - before[k] for k, v in all_launches().items()}}
+        pipe.close()
+    os.environ["DEEPFLOW_SHARED_SORT"] = "1"
+    oracle, shared = runs["0"], runs["1"]
+    check(same_docs(oracle["docs"], shared["docs"]), "3n: oracle windows differ")
+    check(len(shared["blocks"]) == len(SELFOBS_SECONDS)
+          and same_blocks(oracle["blocks"], shared["blocks"]), "3n: oracle sketch blocks differ")
+    rows = sk_cfg.topk_rows
+    check(oracle["census"]["plane_sorts"] == 2 * rows and shared["census"]["plane_sorts"] == 1,
+          f"3n: plane sorts {oracle['census']} / {shared['census']}")
+    check(oracle["launches"]["sketch_fused"] == 0 and shared["launches"]["sketch_fused"] > 0,
+          "3n: sketch_fused launches (oracle none, shared sort some)")
+    summary = {k: {"census": r["census"], "sketch_fused_launches": r["launches"]["sketch_fused"],
+                   "segreduce_gather_launches": r["launches"]["segreduce_gather"]}
+               for k, r in (("oracle", oracle), ("shared_sort", shared))}
+    return summary, shared["blocks"]
+
+
+def active_blocks() -> dict:
+    """The caching allocator's allocated blocks: address → (block bytes,
+    requested bytes, pool "small" or "large")."""
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                out[addr] = (b["size"], b["requested_size"], seg["segment_type"])
+            addr += b["size"]
+    return out
+
+
+def block_slack(requested: int, pool: str) -> int:
+    """The most a block of `pool` may exceed a request of `requested`
+    bytes under the allocator's rounding and split rule."""
+    rounded = -(-max(requested, 1) // K_MIN_BLOCK_SIZE) * K_MIN_BLOCK_SIZE
+    unsplit = K_SMALL_SIZE if pool == "large" else K_MIN_BLOCK_SIZE - 1
+    return rounded - requested + unsplit
+
+
+def shard_part(tree, d: int):
+    """Shard d's part of a ShardedWindowManager plane, whose trees hold
+    one entry a shard in every list of SHARDS entries."""
+    if isinstance(tree, list):
+        return tree[d] if len(tree) == SHARDS else [shard_part(x, d) for x in tree]
+    return tree
+
+
+def storage_bytes(tree) -> int:
+    """The summed sizes of the distinct storages of a plane tree."""
+    from deepflow_tpu_torch.profiling.ledger import plane_tensors
+
+    return sum({x.untyped_storage().data_ptr(): x.untyped_storage().nbytes()
+                for x in plane_tensors(tree)}.values())
+
+
+def tensor_names(roots: dict, depth: int = 8) -> dict:
+    """storage address → the attribute path of a CUDA tensor reachable
+    from `roots` (the port's objects, dicts, lists, tuples, dataclasses)."""
+    out, seen, queue = {}, set(), list(roots.items())
+    for path, x in queue:  # grows while it is walked: breadth first
+        if id(x) in seen or path.count(".") + path.count("[") > depth:
+            continue
+        seen.add(id(x))
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                out.setdefault(x.untyped_storage().data_ptr(), path)
+        elif isinstance(x, dict):
+            queue += [(f"{path}[{k!r}]", v) for k, v in x.items()]
+        elif isinstance(x, (list, tuple)):
+            queue += [(f"{path}[{i}]", v) for i, v in enumerate(x)]
+        elif type(x).__module__.startswith("deepflow_tpu_torch") and hasattr(x, "__dict__"):
+            queue += [(f"{path}.{k}", v) for k, v in vars(x).items()]
+    return out
+
+
+def ledger_on_card(dev, batches, sk_cfg) -> tuple[object, object, dict]:
+    """3f's L4Pipeline (slab plane, minute + hour cascade, 2^18-row
+    stashes) built on a collected, emptied cache and fed `batches`: the
+    ledger's bytes against the allocator's. Returns (pipeline, ledger,
+    summary)."""
+    import gc
+
+    from deepflow_tpu_torch.aggregator.cascade import CascadeConfig
+    from deepflow_tpu_torch.ops import sketch_fused
+    from deepflow_tpu_torch.profiling import DeviceMemoryLedger
+    from deepflow_tpu_torch.profiling.ledger import plane_tensors
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    blocks0, alloc0 = active_blocks(), torch.cuda.memory_allocated()
+    pipe = selfobs_pipeline(dev, sk_cfg, CascadeConfig(intervals=CASCADE_INTERVALS,
+                                                       capacity=STASH_CAPACITY))
+    for fb in batches:
+        pipe.ingest(fb)
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - alloc0
+    led = DeviceMemoryLedger()
+    led.register("window_manager", pipe.wm)
+    f0, rows = pipe.wm.host_fetches, []
+    trace = profile_cycle(lambda: rows.extend(led.snapshot()))
+    check(pipe.wm.host_fetches == f0 and trace["copies"]["DtoH"] == 0,
+          f"3n: a ledger snapshot fetched ({pipe.wm.host_fetches - f0}, {trace['copies']})")
+    total = sum(r["bytes"] for r in rows)
+    blocks1 = active_blocks()
+    new = {a: b for a, b in blocks1.items() if blocks0.get(a) != b}
+    freed = sum(b[0] for a, b in blocks0.items() if blocks1.get(a) != b)
+    check(sum(b[0] for b in new.values()) - freed == delta,
+          "3n: allocator blocks do not add up to the delta")
+    storages = {}
+    for tree in pipe.wm.device_planes().values():
+        for x in plane_tensors(tree):
+            check(x.is_cuda, "3n: a plane tensor is not on the card")
+            if x.untyped_storage().nbytes():  # empty lanes own no block
+                storages[x.untyped_storage().data_ptr()] = x.untyped_storage().nbytes()
+    check(sum(storages.values()) == total, "3n: the ledger's bytes are not its storages'")
+    check(all(p in new for p in storages), "3n: a plane storage predates the pipeline")
+    # each plane block: asked for exactly its storage, and no larger than
+    # the allocator's rule allows
+    slack = 0
+    for p, n in storages.items():
+        size, requested, pool = new[p]
+        check(requested == n, f"3n: plane block at {p:#x} asked for {requested} B, holds {n} B")
+        check(size - n <= block_slack(n, pool),
+              f"3n: plane block at {p:#x} is {size} B for {n} B ({pool} pool), past the "
+              f"allocator's {block_slack(n, pool)} B")
+        slack += block_slack(n, pool)
+    names = tensor_names({"pipe": pipe, "sketch_fused._TABLES": sketch_fused._TABLES})
+    others = {names.get(a, f"unnamed block at {a:#x}"): b[0] for a, b in new.items()
+              if a not in storages}
+    unexpected = {k: v for k, v in others.items() if not k.startswith(NON_PLANE_TENSORS)}
+    check(not unexpected, f"3n: blocks outside the planes: {unexpected}")
+    allowance = slack + sum(others.values())
+    check(0 < total <= delta, f"3n: ledger {total} B vs allocated delta {delta} B")
+    check(delta - total <= allowance,
+          f"3n: allocated delta − ledger = {delta - total} B > allowance {allowance} B")
+    per_plane = {r["plane"]: r["bytes"] for r in rows}
+    return pipe, led, {
+        "allocated_delta_bytes": delta, "ledger_bytes": total, "gap_bytes": delta - total,
+        "allowance_bytes": allowance, "plane_block_slack_bytes": slack,
+        "plane_block_overhead_bytes": sum(new[p][0] - n for p, n in storages.items()),
+        "blocks": len(new), "plane_blocks": len(storages), "non_plane_tensors": others,
+        "freed_bytes": freed,
+        "per_plane_bytes": per_plane,
+        "ratio_to_reference": {k: per_plane[k] / v for k, v in REF_PLANE_BYTES_3N.items()},
+        "reference_bytes": REF_PLANE_BYTES_3N, "snapshot_trace": {
+            k: trace[k] for k in ("wall_ms", "kernel_launches", "copies")},
+    }
+
+
+def checkpoint_watermark(dev) -> int:
+    """A small save on a fresh default ledger: the checkpoint_scratch
+    high watermark it leaves."""
+    import shutil
+    import tempfile
+
+    from deepflow_tpu_torch.aggregator.checkpoint import save_window_state
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+    from deepflow_tpu_torch.profiling import DeviceMemoryLedger
+    from deepflow_tpu_torch.profiling import ledger as ledger_mod
+
+    saved, ledger_mod.default_ledger = ledger_mod.default_ledger, DeviceMemoryLedger()
+    work = tempfile.mkdtemp(prefix="chip_smoke_selfobs_")
+    try:
+        pipe = L4Pipeline(PipelineConfig(window=WindowConfig(capacity=1 << 12),
+                                         batch_size=SMALL_BATCH), device=dev)
+        gen = SyntheticFlowGen(num_tuples=500, seed=2)
+        for dt in range(3):
+            pipe.ingest(gen.flow_batch(SMALL_BATCH, T0 + dt))
+        save_window_state(pipe.wm, os.path.join(work, "small.ckpt"))
+        rows = {r["plane"]: r for r in ledger_mod.default_ledger.snapshot()}
+        pipe.close()
+    finally:
+        ledger_mod.default_ledger = saved
+        shutil.rmtree(work, ignore_errors=True)
+    ck = rows.get("checkpoint_scratch", {"bytes": None, "bytes_hwm": 0})
+    check(ck["bytes"] == 0 and ck["bytes_hwm"] > 0, f"3n: checkpoint scratch row {ck}")
+    return ck["bytes_hwm"]
+
+
+def dogfood(dev, pipe, led) -> dict:
+    """The pipeline, its spans, the ledger and the step census through a
+    collector tick into deepflow_system, read back by the port's SQL
+    engine on the card: every value equal to get_counters() bit for bit."""
+    from deepflow_tpu_torch.integration.dfstats import system_metric_name, system_sink
+    from deepflow_tpu_torch.profiling import default_census
+    from deepflow_tpu_torch.querier import QueryEngine
+    from deepflow_tpu_torch.storage.store import ColumnarStore
+    from deepflow_tpu_torch.utils.stats import StatsCollector
+
+    store = ColumnarStore()
+    col = StatsCollector(interval_s=1e9)
+    faces = {"tpu_pipeline": pipe, "tpu_pipeline_spans": pipe.tracer, "tpu_hbm": led,
+             "tpu_step_census": default_census}
+    for module, face in faces.items():
+        col.register(module, face, kind="L4Pipeline")
+    col.add_sink(system_sink(store))
+    expected = {m: dict(f.get_counters()) for m, f in faces.items()}
+    expected["tpu_hbm"]["snapshots"] += 1  # the tick's read
+    col.tick(now=float(T0 + 100))
+    eng = QueryEngine(store, cache=False, device=dev)
+    n = 0
+    for module, fields in expected.items():
+        for field, value in fields.items():
+            metric = system_metric_name(module, field)
+            res = eng.execute("SELECT value FROM deepflow_system.deepflow_system "
+                              f"WHERE metric = '{metric}'")
+            check(res.rows == 1 and float(res.values["value"][0]) == float(value),
+                  f"3n: {metric} via SQL {res.values.get('value')} vs {value}")
+            n += 1
+    check(any(k.endswith("_bytes") for k in expected["tpu_hbm"])
+          and expected["tpu_step_census"]["entries"] > 0, "3n: hbm / census lanes missing")
+    return {"metrics": n, "hbm_bytes_lanes": sorted(k for k in expected["tpu_hbm"]
+                                                    if k.endswith("_bytes"))}
+
+
+def sketch_rows_card_vs_cpu(dev, block) -> int:
+    """sketch_block_rows of a closed block (host numpy, as the sink runs
+    it) against the same rows' quantiles from the tensor t-digest on the
+    card."""
+    from deepflow_tpu_torch.integration.dfstats import SKETCH_METRIC_QUANTILE, sketch_block_rows
+    from deepflow_tpu_torch.ops import histogram, tdigest
+
+    rows = sketch_block_rows(block, 1)
+    spec = block.config.hist
+    centers = histogram.loghist_centers(spec, dev)
+    want = [r for r in rows if r[1] == SKETCH_METRIC_QUANTILE]
+    check(want, "3n: the block gave no quantile rows")
+    for r in want:
+        g, q = int(r[2]["service"]), float(r[2]["q"])
+        h = torch.from_numpy(block.hist[g].astype(np.float32)).to(dev)
+        m, w = tdigest.tdigest_compress(centers, h)
+        v = float(tdigest.tdigest_quantile(m, w, torch.tensor([q], device=dev))[0])
+        check(abs(v - r[3]) <= FLOAT_RTOL * abs(r[3]), f"3n: quantile {g}/{q}: {v} vs {r[3]}")
+    return len(rows)
+
+
+def telemetry_of(tel: dict) -> dict:
+    """A telemetry() record's headline: counters, span quantiles, bytes."""
+    check(set(tel) >= {"counters", "spans", "profile"}
+          and tel["profile"]["hbm_bytes"]["stash"] > 0
+          and all("p99_us" in s for s in tel["spans"].values()), "3n: telemetry() shape")
+    return {"counters": {k: tel["counters"][k] for k in (
+                "window_advances", "host_fetches", "bytes_fetched") if k in tel["counters"]},
+            "spans": {k: {f: s[f] for f in ("count", "p50_us", "p99_us")}
+                      for k, s in tel["spans"].items()},
+            "profile": {k: v for k, v in tel["profile"].items() if k != "census"}}
+
+
+def selfobs_phase(dev, sk_cfg) -> tuple[dict, dict]:
+    """Phase 3n. Counts zeroed before its main path (the oracle and
+    shared-sort runs, the ledger pipeline, the sharded run) and read
+    after. Returns (launches, summary)."""
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+    from deepflow_tpu_torch.profiling import default_ledger
+
+    t_phase = time.perf_counter()
+    fns = sketch_fns_card_vs_cpu(dev)
+    gen = SyntheticFlowGen(num_tuples=10_000, seed=0)
+    batches = [gen.flow_batch(BATCH, T0 + dt) for dt in SELFOBS_SECONDS]
+    reset_all_launch_counts()
+    oracle, blocks = oracle_runs(dev, batches, sk_cfg)
+    pipe, led, ledger = ledger_on_card(dev, batches, sk_cfg)
+    swm = sharded_manager(dev, sharded_config())
+    for dt, fb in zip(SELFOBS_SECONDS, batches):
+        if dt in SELFOBS_SHARDED_SECONDS:
+            swm.ingest(fb.tags, fb.meters, fb.valid)
+    swm.drain()
+    torch.cuda.synchronize()
+    launches = all_launches()
+    check(launches["segreduce_gather"] > 0 and launches["sketch_fused"] > 0,
+          f"3n launches {launches}")
+    sh_rows = [r for r in default_ledger.snapshot() if r["module"] == "sharded_window_manager"
+               and r["devices"] == SHARDS]
+    sh_planes = swm.device_planes()
+    check("cascade" not in sh_planes and {r["plane"] for r in sh_rows} == set(sh_planes),
+          "3n: sharded ledger planes")
+    for r in sh_rows:
+        per_shard = [storage_bytes(shard_part(sh_planes[r["plane"]], d)) for d in range(SHARDS)]
+        check(r["bytes_per_device"] == per_shard[0] and r["bytes"] == sum(per_shard),
+              f"3n: sharded {r['plane']}: ledger {r['bytes_per_device']} B a device, "
+              f"{r['bytes']} B in all; the shards' storages hold {per_shard}")
+    tel_pipe, tel_swm = pipe.telemetry(), swm.telemetry()
+    check(tel_swm["profile"]["devices"] == SHARDS, "3n: sharded telemetry devices")
+    check(tel_swm["spans"]["window.advance"]["count"]
+          == tel_swm["counters"]["window_advances"], "3n: one window.advance per advance")
+    census_rows = pipe.profile_snapshot(analyze=True)["census"]
+    summary = {
+        "sketch_functions": fns, "oracle": oracle, "ledger": ledger,
+        "checkpoint_scratch_hwm_bytes": checkpoint_watermark(dev),
+        "dogfood": dogfood(dev, pipe, led),
+        "sketch_rows_checked": sketch_rows_card_vs_cpu(dev, blocks[0]),
+        "census_ledger_pipeline": census_rows,
+        "telemetry": {"pipeline": telemetry_of(tel_pipe), "sharded": telemetry_of(tel_swm)},
+    }
+    pipe.close()
+    swm.close()
+    del pipe, swm, led
+    summary["wall_s"] = time.perf_counter() - t_phase
+    return launches, summary
+
+
 def load_other_port(path: str):
     """The ops.segreduce and ops.sketch_fused modules of another checkout
     of this repo (for example the parent commit, unpacked with git
@@ -3409,9 +3885,11 @@ def main() -> int:
 
     build.build(build.all_sources())
     build_s = time.perf_counter() - t0
+    from deepflow_tpu_torch.utils.provenance import bench_provenance
+
     emit({"phase": "device", "nvidia_smi": gpu, "torch": torch.__version__,
-                      "cuda": torch.version.cuda, "build_s": round(build_s, 3),
-                      "build_seconds": build.build_seconds})
+          "cuda": torch.version.cuda, "build_s": round(build_s, 3),
+          "build_seconds": build.build_seconds, "provenance": bench_provenance()})
     sk_cfg = sketch_config()
 
     # 2. kernel parity at the main-path shapes
@@ -3599,6 +4077,13 @@ def main() -> int:
     del plat
     torch.cuda.empty_cache()
 
+    # 3n. self-observability: the standalone sketch functions card = CPU,
+    # the multi-sort oracle, the ledger against the allocator, the
+    # dogfood loop, telemetry() (selfobs_phase)
+    main_selfobs, selfobs_summary = selfobs_phase(dev, sk_cfg)
+    emit({"phase": "selfobs", "gpu": gpu, **selfobs_summary})
+    torch.cuda.empty_cache()
+
     # 3g. the counter ring and async drain at full width: the 3c stream,
     # 3 batches a second for T0 … T0+5, staged on the card once and
     # ingested by three pipelines in turn
@@ -3770,6 +4255,7 @@ def main() -> int:
             "launches_sharded_checkpoint": main_sharded_ckpt[k],
             "launches_sharded_cascade": main_sharded_casc[k],
             "launches_server": main_server[k], "launches_agent": main_agent[k],
+            "launches_selfobs": main_selfobs[k],
         })
     # the server path's downsample group-by (fused gather only)
     check(kernels[0]["name"] == "segreduce_gather", "kernels line order")
@@ -3791,6 +4277,7 @@ def main() -> int:
         "launches_sharded_checkpoint": main_sharded_ckpt[sk_name],
         "launches_sharded_cascade": main_sharded_casc[sk_name],
         "launches_server": main_server[sk_name], "launches_agent": main_agent[sk_name],
+        "launches_selfobs": main_selfobs[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",

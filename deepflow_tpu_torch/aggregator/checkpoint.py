@@ -38,8 +38,9 @@ become [D] lists in meta, and the mesh topology's `describe()` rides
 along. As for one chip, a port file and a reference file of one state
 carry one digest; a restore uploads each shard's slice to its device.
 
-Not ported: the save's tracer span (`checkpoint.save`) and its note of
-the transient device scratch on the HBM ledger (`note_transient`).
+Each save runs inside the manager's `checkpoint.save` tracer span and
+notes the pack buffers' bytes on the device-memory ledger's transient
+`checkpoint_scratch` plane (a high watermark; steady bytes stay 0).
 """
 
 from __future__ import annotations
@@ -443,11 +444,25 @@ def save_window_state(wm: WindowManager, path: str | Path, *, extra_meta=None) -
     state, so the CALLER must emit them before treating the checkpoint as
     the resume point. `extra_meta` (e.g. the feeder's journal barrier)
     merges into meta and comes back from `read_checkpoint_meta`."""
-    in_flight, meta, arrays = _window_payload(wm)
-    if extra_meta:
-        meta.update(extra_meta)
-    _write_checkpoint(path, meta, arrays)
+    from ..utils.spans import SPAN_CHECKPOINT_SAVE
+
+    with wm.tracer.span(SPAN_CHECKPOINT_SAVE):
+        in_flight, meta, arrays = _window_payload(wm)
+        if extra_meta:
+            meta.update(extra_meta)
+        _note_scratch(arrays)
+        _write_checkpoint(path, meta, arrays)
     return in_flight
+
+
+def _note_scratch(arrays: dict) -> None:
+    """The pack buffers were materialized on the device at exactly these
+    byte sizes before their host copies: record the peak on the ledger's
+    transient checkpoint_scratch plane."""
+    from ..profiling.ledger import PLANE_CHECKPOINT, default_ledger
+
+    default_ledger.note_transient(PLANE_CHECKPOINT,
+                                  sum(a.nbytes for a in arrays.values()))
 
 
 def _restore_window(meta: dict, arrays: dict, path, tag_schema: TagSchema,
@@ -638,10 +653,14 @@ def save_sharded_state(swm, path: str | Path, *, extra_meta=None) -> list:
     synchronous, so nothing else is deferred). Returns the held closed
     tier windows ((interval, DocBatch) pairs — not in the snapshot; the
     CALLER must emit them), [] without a cascade."""
-    in_flight, meta, arrays = _sharded_payload(swm)
-    if extra_meta:
-        meta.update(extra_meta)
-    _write_checkpoint(path, meta, arrays)
+    from ..utils.spans import SPAN_CHECKPOINT_SAVE
+
+    with swm.tracer.span(SPAN_CHECKPOINT_SAVE):
+        in_flight, meta, arrays = _sharded_payload(swm)
+        if extra_meta:
+            meta.update(extra_meta)
+        _note_scratch(arrays)
+        _write_checkpoint(path, meta, arrays)
     return in_flight
 
 

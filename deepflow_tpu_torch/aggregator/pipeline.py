@@ -31,13 +31,25 @@ counter block. The WindowManager's counter ring (`stats_ring`) and
 A pipeline with a cascade lists its tiers with the server's datasource
 registry (`server.datasource.register_cascade_tiers`), weakly held.
 
-Not ported yet: countable registration, profiling census, lineage and
-telemetry.
+Self-observability, as in the reference: every pipeline registers its
+fetch-free counters (`tpu_pipeline`) and its WindowManager's stage spans
+(`tpu_pipeline_spans`) on the default StatsCollector, weakly; the
+manager is on the device-memory ledger (profiling/ledger.py). The first
+dispatch of each bucket shape is observed by the step census
+(profiling/census.py, step "fused_step", the reference's name):
+argument shapes, host wall and the logical sorts the step runs.
+`profile_snapshot()` joins the per-plane bytes and this pipeline's
+census rows; `telemetry()` adds the counters and the span summary;
+`close()` deregisters everything eagerly.
+
+Not ported yet: lineage (`attach_lineage`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import time
 
 import numpy as np
 import torch
@@ -47,8 +59,9 @@ from ..datamodel.code import DOC_KEY_PACK, RAW_TAG_PACK, DocumentFlag, pack_tag_
 from ..datamodel.schema import APP_METER, FLOW_METER, TAG_SCHEMA, MeterSchema
 from ..device import resolve_device
 from ..ops.hashing import fingerprint64_words
-from ..ops.segment import groupby_reduce
+from ..ops.segment import groupby_reduce, sort_census
 from ..ops.u32 import from_numpy_u32
+from ..utils.stats import register_countable
 from .fanout import FANOUT_LANES, FanoutConfig, fanout_l4, fanout_l7
 from ..ops.segment import SENTINEL_SLOT
 from .stash import _append_impl, _fold_impl, _merge_fold_impl, check_fold_mode, sum_max_cols
@@ -63,6 +76,9 @@ from .window import (
     sketch_inputs_from_columns,
     sketch_span_bounds,
 )
+
+# per-instance census service keys (see RollupPipeline.__init__)
+_PIPELINE_SEQ = itertools.count(1)
 
 # DOC_KEY_PACK covers exactly the TAG_SCHEMA key columns — drift between
 # the schema and the packing widths table fails at import.
@@ -269,6 +285,20 @@ class RollupPipeline:
 
             register_cascade_tiers(self.meter_schema.name, config.window.cascade.intervals,
                                    owner=self)
+        self.tracer = self.wm.tracer  # host stage spans (utils/spans)
+        # self-telemetry registration, weakly held; handles kept so
+        # close() can deregister eagerly
+        tags = dict(kind=type(self).__name__, interval=f"{config.window.interval}s")
+        self._stats_srcs = [register_countable("tpu_pipeline", self, **tags),
+                            register_countable("tpu_pipeline_spans", self.tracer, **tags)]
+        # the step census (read at construction, so a test can swap in a
+        # fresh one); a per-INSTANCE service key, since two live pipelines
+        # of one class and interval may run different steps
+        from ..profiling import census as census_mod
+
+        self._census = census_mod.default_census
+        self._census_service = (f"{type(self).__name__}:{config.window.interval}s"
+                                f"#{next(_PIPELINE_SEQ)}")
 
     def _step(self, acc, offset: int, start_window, stash_valid, stash_evict,
               feeder_shed: int, fold_rows, casc_lanes, snap_lanes, sk, tags: dict, meters,
@@ -349,17 +379,34 @@ class RollupPipeline:
             cap_u or (self.config.bucket_sizes or (self.config.batch_size,))[-1]
         )
 
+        key = (self._census_service, "fused_step", staged.padded_rows)
+        first = not self._census.seen(*key)
+
         def dispatch(acc, offset, start_window):
             st = self.wm.state
-            return self._step(acc, offset, start_window, st.valid,
-                              st.dropped_overflow, feeder_shed,
-                              self.wm._fold_rows_dev, self.wm._cascade_lanes(),
-                              self.wm._snapshot_lanes(), self.wm.sk, staged.tags,
-                              staged.meters, staged.valid)
+            args = (acc, offset, start_window, st.valid, st.dropped_overflow, feeder_shed,
+                    self.wm._fold_rows_dev, self.wm._cascade_lanes(),
+                    self.wm._snapshot_lanes(), self.wm.sk, staged.tags, staged.meters,
+                    staged.valid)
+            if not first:
+                return self._step(*args)
+            # census capture, a bucket's first dispatch only: shapes and
+            # dtypes (host metadata), the logical sorts, the outputs
+            self._census.observe(*key, self._step, args)
+            with sort_census() as tally:
+                out = self._step(*args)
+            self._census.note_sorts(*key, tally)
+            self._census.note_outputs(*key, out)
+            return out
 
-        return self._convert_flushed(
-            self.wm.ingest_step(dispatch, rows, ring_rows=max_rows)
-        )
+        t0 = time.perf_counter()
+        flushed = self.wm.ingest_step(dispatch, rows, ring_rows=max_rows)
+        if first:
+            # the first dispatch's host wall is the bucket's warmup tax
+            # (no device sync: the counter-block fetch inside already
+            # waited for the step when it is not deferred)
+            self._census.note_compile(*key, time.perf_counter() - t0)
+        return self._convert_flushed(flushed)
 
     def drain(self) -> list[DocBatch]:
         return self._convert_flushed(self.wm.flush_all())
@@ -419,6 +466,42 @@ class RollupPipeline:
         out["tier_sketch_blocks_held"] = len(self.closed_tier_sketches)
         out["tier_sketch_blocks_dropped"] = self.tier_sketch_blocks_dropped
         return out
+
+    # -- device profiling plane ------------------------------------------
+    def device_planes(self) -> dict:
+        """Profilable face — the owning WindowManager's planes (the
+        manager is the one registered on the ledger, so the flat tpu_hbm_*
+        lanes never double-count a pipeline-wrapped manager)."""
+        return self.wm.device_planes()
+
+    def profile_snapshot(self, *, analyze: bool = False) -> dict:
+        """This pipeline's profile record: per-plane device bytes and the
+        census rows of its step (`analyze=True` adds the bytes bound of
+        the recorded shapes; nothing runs on the device)."""
+        from ..profiling.ledger import plane_bytes
+
+        seen: set = set()
+        return {
+            "hbm_bytes": {name: plane_bytes(tree, seen)[0]
+                          for name, tree in sorted(self.wm.device_planes().items())},
+            "census": [r for r in self._census.snapshot(analyze=analyze)
+                       if r["service"] == self._census_service],
+        }
+
+    def close(self) -> None:
+        """Eager teardown: the manager leaves the ledger and the
+        pipeline's Countable rows stop."""
+        self.wm.close()
+        from ..utils.stats import default_collector
+
+        for src in self._stats_srcs:
+            default_collector.deregister(src)
+
+    def telemetry(self) -> dict:
+        """JSON-able snapshot: the fetch-free counters, the per-stage span
+        summary and the profile record (no analysis)."""
+        return {"counters": self.get_counters(), "spans": self.tracer.summary(),
+                "profile": self.profile_snapshot()}
 
     @property
     def counters(self) -> dict:
@@ -521,6 +604,10 @@ class DualGranularityPipeline:
             },
         }
 
+    def telemetry(self) -> dict:
+        t = self.pipe.telemetry()
+        return {"second": t, "minute": {"counters": self.counters["minute"]}}
+
 
 class DoubleIngestPipeline:
     """Dual granularity the old way: a full second ingest into a parallel
@@ -552,3 +639,6 @@ class DoubleIngestPipeline:
     @property
     def counters(self) -> dict:
         return {"second": self.second.counters, "minute": self.minute.counters}
+
+    def telemetry(self) -> dict:
+        return {"second": self.second.telemetry(), "minute": self.minute.telemetry()}

@@ -42,10 +42,14 @@ Differences from the reference, none visible in any output:
     `slot_of` is int64, `p_hll` int8 (folded in int32 and narrowed), the
     compact top-K key/id lanes int32 bits, wide_close/wide_count and the
     pool_spill/pool_promos scalars int64 u32 lanes;
-  * top-K always rides the one shared (window, key_hi, key_lo) sort; the
-    HLL + count-min + challenger scan of that path is
-    ops/sketch_fused.sketch_update_fused (the CUDA kernel on the card).
-    With top-K off there is no sort and no kernel: per-row scatters.
+  * with top-K on, the plane takes the one shared (window, key_hi,
+    key_lo) sort by default; the HLL + count-min + challenger scan of
+    that path is ops/sketch_fused.sketch_update_fused (the CUDA kernel
+    on the card). DEEPFLOW_SHARED_SORT=0 (read at every step) selects
+    the reference's multi-sort oracle instead: per-row HLL and count-min
+    scatters and `ops/topk.topk_update` — one fresh sort per top-K hash
+    row and phase, no fused kernel — with the same blocks. With top-K
+    off there is no sort and no kernel: per-row scatters.
 
 The live read plane reads the open slots without closing them
 (`_flatten_open_snapshot`): slab mode packs the ring like a close, pool
@@ -70,10 +74,16 @@ from ..ops.histogram import (
     saturate_i32,
 )
 from ..ops.hll import clz32, hll_estimate_np, hll_pack_registers, hll_unpack_registers_np
-from ..ops.segment import sort_perm
+from ..ops.segment import _use_shared_sort, active_sort_tally, sort_perm
 from ..ops.sketch_fused import hll_cms_scatter, sketch_update_fused
 from ..ops.tdigest import tdigest_compress, tdigest_quantile
-from ..ops.topk import _apply_challengers, topk_challengers_presorted, topk_select, topk_tile
+from ..ops.topk import (
+    _apply_challengers,
+    topk_challengers_presorted,
+    topk_select,
+    topk_tile,
+    topk_update,
+)
 from ..ops.u32 import MASK, U32_MAX, to_i32_bits
 
 SENTINEL_WIN = U32_MAX
@@ -423,7 +433,7 @@ def sketch_close(sk: SketchState, close_w) -> SketchState:
     return sk
 
 
-def shared_sort(window, key_hi, key_lo):
+def batch_sort(window, key_hi, key_lo):
     """THE batch sort: stable over (window, key_hi, key_lo) with the row
     position as payload; phase masks ride through it. Returns (s_win,
     s_hi, s_lo, s_pos, head, run_id) — run = one (window, key)."""
@@ -548,9 +558,17 @@ def _scatter_rows_pool(sk: SketchState, mask, slot, gid, reg, rho, w, b, rtt_val
     _arena_hist(sk.hist, pslot - pc, is_w & rtt_valid, gid, b)
     _arena_hist(sk.p_hist, pslot, is_c & rtt_valid, gid,
                 loghist_coarsen_bin(b, sk.hist.shape[2] // sk.p_hist.shape[2]))
-    if presorted is None:  # top-K off: per-row count-min adds
+    if presorted is None:  # per-row count-min adds
         _arena_cms(sk.cms, pslot - pc, is_w, key_hi, key_lo, w)
         _arena_cms(sk.p_cms, pslot, is_c, key_hi, key_lo, w)
+        if sk.tk_votes.shape[1]:  # the multi-sort oracle's top-K
+            for names, ix, on in ((TOPK_LANES, pslot - pc, is_w),
+                                  (POOL_TOPK_LANES, pslot, is_c)):
+                lanes = topk_update(tuple(getattr(sk, k) for k in names),
+                                    torch.where(on, ix, -1), key_hi, key_lo, id_a, id_b,
+                                    w, on)
+                for k, v in zip(names, lanes):
+                    setattr(sk, k, v)
         return sk
     s_win, s_hi, s_lo, s_pos, head, run_id = presorted
     run_w = torch.zeros(s_pos.shape[0], dtype=torch.int32, device=w.device)
@@ -600,8 +618,14 @@ def _scatter_rows(sk: SketchState, spec: LogHistSpec, mask, window, group,
                                 (mask & rtt_valid).to(torch.int32))
 
     if presorted is None:
-        # top-K off: per-row HLL max and count-min adds, no sort, no kernel
+        # per-row HLL max and count-min adds, no kernel; with top-K on
+        # (the multi-sort oracle) a fresh sort per hash row
         hll_cms_scatter(sk.hll, sk.cms, slot, gid, reg, rho, mask, key_hi, key_lo, w)
+        if sk.tk_votes.shape[1]:
+            lanes = topk_update(tuple(getattr(sk, k) for k in TOPK_LANES), slot, key_hi,
+                                key_lo, id_a, id_b, w, mask)
+            for k, v in zip(TOPK_LANES, lanes):
+                setattr(sk, k, v)
         return sk
 
     _, _, challengers = sketch_update_fused(
@@ -633,7 +657,8 @@ def phase_masks(sk: SketchState, *, window, valid, base_w, close_w):
 
 def sketch_plane_step(sk: SketchState, spec: LogHistSpec, *, window, valid, base_w,
                       close_w, group, client_hi, client_lo, key_hi, key_lo, weight,
-                      rtt, rtt_valid, id_a, id_b) -> SketchState:
+                      rtt, rtt_valid, id_a, id_b, shared_sort: bool | None = None
+                      ) -> SketchState:
     """One batch through the plane, in window order (in place):
 
       1. closing-span rows (base_w ≤ window < close_w, inside the live
@@ -645,10 +670,20 @@ def sketch_plane_step(sk: SketchState, spec: LogHistSpec, *, window, valid, base
     tensors or host ints). The closing phase's alias-free span is
     anchored at the oldest live ring slot; rows in the mid-gap
     [anchor + R, close_w) are counted into `shed`. u32 lanes are int64
-    tensors; `weight`/`rtt` are float32."""
+    tensors; `weight`/`rtt` are float32.
+
+    With top-K on, `shared_sort` (default: the DEEPFLOW_SHARED_SORT knob,
+    on) sorts the batch once for both phases; off, each phase runs the
+    multi-sort oracle (2 phases × topk_rows sorts). An open sort tally
+    (ops/segment.sort_census) gets this step's sorts as `plane_sorts`."""
+    tally = active_sort_tally()
+    sorts0 = tally["sorts"] if tally is not None else 0
+    if shared_sort is None:
+        shared_sort = _use_shared_sort()
     in_a, in_c, shed = phase_masks(sk, window=window, valid=valid, base_w=base_w,
                                    close_w=close_w)
-    presorted = shared_sort(window, key_hi, key_lo) if sk.tk_votes.shape[1] else None
+    presorted = (batch_sort(window, key_hi, key_lo)
+                 if shared_sort and sk.tk_votes.shape[1] else None)
 
     args = (group, client_hi, client_lo, key_hi, key_lo, weight, rtt, rtt_valid,
             id_a, id_b)
@@ -659,6 +694,8 @@ def sketch_plane_step(sk: SketchState, spec: LogHistSpec, *, window, valid, base
         sk = _maybe_promote(sk)
     sk.rows = (sk.rows + in_a.sum() + in_c.sum()) & MASK
     sk.shed = (sk.shed + shed.sum()) & MASK
+    if tally is not None:
+        tally["plane_sorts"] += tally["sorts"] - sorts0
     return sk
 
 
@@ -848,13 +885,16 @@ class WindowSketchBlock:
         hist = self.hist.sum(axis=0) if group is None else self.hist[group]
         spec = self.config.hist
         centers = spec.vmin * np.power(spec.gamma, np.arange(spec.bins, dtype=np.float64) + 0.5)
-        return tdigest_compress(centers.astype(np.float32), hist.astype(np.float32),
+        m, w = tdigest_compress(torch.from_numpy(centers.astype(np.float32)),
+                                torch.from_numpy(hist.astype(np.float32)),
                                 compression=compression)
+        return m.numpy(), w.numpy()
 
     def quantile(self, q: float, group: int | None = None) -> float:
         """Latency quantile through the t-digest export path."""
         m, w = self.tdigest(group)
-        return float(tdigest_quantile(m, w, np.asarray([q], np.float32))[0])
+        return float(tdigest_quantile(torch.from_numpy(m), torch.from_numpy(w),
+                                      torch.tensor([q], dtype=torch.float32))[0])
 
     def topk(self, k: int) -> list[dict]:
         """Invert the heavy-hitter sketch: candidates from the bucket

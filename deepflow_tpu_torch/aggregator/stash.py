@@ -40,6 +40,7 @@ from ..ops.segment import (
     groupby_reduce_sorted,
     merge_order,
     merge_ranks,
+    note_sort,
     sort_perm,
 )
 from ..ops.u32 import U32_MAX, to_i32_bits
@@ -310,6 +311,7 @@ def _pack_window_range(state: StashState, lo: int, hi: int):
     (mask, packed, total)."""
     mask = state.valid & (state.slot >= lo) & (state.slot < hi)
     rank = torch.where(mask, state.slot, SENTINEL_SLOT)
+    note_sort()
     order = torch.sort(rank, stable=True).indices
     cols = pack_u32_columns(state.slot, state.key_hi, state.key_lo,
                             state.tags, state.meters)  # [3+T+M, S]

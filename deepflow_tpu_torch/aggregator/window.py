@@ -55,7 +55,14 @@ reference's order, so a fault plan's call indices name the same
 dispatch and fetch in both packages; retries are counted in
 `dispatch_retries` / `fetch_retries`.
 
-Absent: lineage, spans and profiling registration.
+Self-observability: the host stage spans of utils/spans (`ingest.dispatch`,
+`stats.fetch`, `window.advance`, `window.fold`, `flush.drain`,
+`query.snapshot`) on `self.tracer` — two perf_counter calls each, never
+a device sync — and `device_planes()`, the Profilable face the manager
+registers on the process-wide device-memory ledger at construction
+(weakly; `close()` deregisters eagerly).
+
+Absent: lineage.
 """
 
 from __future__ import annotations
@@ -72,6 +79,15 @@ from ..device import resolve_device
 from ..ops.hashing import fingerprint64_words
 from ..ops.u32 import MASK, U32_MAX, add, mul, shl, to_i32_bits
 from ..utils.retry import RetryPolicy, decorrelated_rng, is_dispatch_transient, retry_call
+from ..utils.spans import (
+    SPAN_FLUSH_DRAIN,
+    SPAN_INGEST_DISPATCH,
+    SPAN_QUERY_SNAPSHOT,
+    SPAN_STATS_FETCH,
+    SPAN_WINDOW_ADVANCE,
+    SPAN_WINDOW_FOLD,
+    SpanTracer,
+)
 from .cascade import CascadeConfig, TierCascade, TierFlush
 from .sketchplane import (
     SENTINEL_WIN,
@@ -79,6 +95,7 @@ from .sketchplane import (
     SketchState,
     WindowSketchBlock,
     _flatten_open_snapshot,
+    _pool_mode,
     hold_blocks,
     scalar_tensor,
     sketch_drain,
@@ -598,6 +615,16 @@ class WindowManager:
         self._retry_rng = decorrelated_rng(0xD15EA5E)
         self.dispatch_retries = 0
         self.fetch_retries = 0
+        self.tracer = SpanTracer()
+        # the device profiling plane: every tensor this manager owns is
+        # enumerable via device_planes(), and the manager registers WEAKLY
+        # on the process-wide ledger (GC removes it, close() eagerly)
+        from ..profiling.ledger import register_profilable
+
+        self._ledger_src = register_profilable(
+            "window_manager", self, interval=f"{config.interval}s",
+            sketch=str(config.sketch is not None), cascade=str(config.cascade is not None),
+        )
 
     def _fetch(self, x: torch.Tensor) -> np.ndarray:
         """host_fetch behind the SITE_FETCH seam, retried on transient
@@ -720,10 +747,13 @@ class WindowManager:
         return flushed
 
     def _drain_ready(self, ready: list[_FlushEntry]) -> list[FlushedWindow]:
-        out = []
-        for entry in ready:
-            out.extend(self._drain_flush(entry))
-        return out
+        if not ready:
+            return []
+        with self.tracer.span(SPAN_FLUSH_DRAIN):
+            out = []
+            for entry in ready:
+                out.extend(self._drain_flush(entry))
+            return out
 
     def _fold(self):
         """Full-set fold: every accumulated row reaches the stash and the
@@ -731,8 +761,9 @@ class WindowManager:
         if self.fill == 0:
             return
         fold = stash_merge_fold if self.config.fold_mode == "merge" else stash_fold_counted
-        self.state, self.acc, self._fold_rows_dev = fold(self.state, self.acc,
-                                                         self.meter_schema)
+        with self.tracer.span(SPAN_WINDOW_FOLD):
+            self.state, self.acc, self._fold_rows_dev = fold(self.state, self.acc,
+                                                             self.meter_schema)
         self.fill = 0
 
     def _fold_span(self, hi_window: int):
@@ -742,16 +773,19 @@ class WindowManager:
         back at the next full fold (plan_append)."""
         if self.fill == 0:
             return
-        self.state, self.acc, self._fold_rows_dev = stash_merge_fold(
-            self.state, self.acc, self.meter_schema, hi_window=hi_window
-        )
+        with self.tracer.span(SPAN_WINDOW_FOLD):
+            self.state, self.acc, self._fold_rows_dev = stash_merge_fold(
+                self.state, self.acc, self.meter_schema, hi_window=hi_window
+            )
 
     def window_of(self, timestamp):
         return timestamp // self.config.interval
 
     # -- stats processing (the ONE per-batch host sync) ------------------
     def _process_stats(self, stats_dev: torch.Tensor) -> None:
-        self._process_block([int(v) for v in self._fetch(stats_dev)])
+        with self.tracer.span(SPAN_STATS_FETCH):
+            vec = [int(v) for v in self._fetch(stats_dev)]
+        self._process_block(vec)
 
     def _drain_stats_ring(self) -> None:
         """Fetch the filled prefix of the counter ring in ONE transfer and
@@ -760,7 +794,8 @@ class WindowManager:
         at the drain instead of mid-ring."""
         if self._ring_count == 0:
             return
-        rows = self._fetch(self._cb_ring[:self._ring_count])
+        with self.tracer.span(SPAN_STATS_FETCH):
+            rows = self._fetch(self._cb_ring[:self._ring_count])
         self._ring_count = 0
         for row in rows:
             self._process_block([int(v) for v in row])
@@ -824,18 +859,19 @@ class WindowManager:
         # packed matrix.
         new_start = self.window_of(max(t_max - self.config.delay, 0))
         if self.start_window < new_start:
-            # flushed windows must see every accumulated row of the
-            # closing span; merge mode folds only that span
-            if self.config.fold_mode == "merge":
-                self._fold_span(new_start)
-            else:
-                self._fold()
-            self.state, packed, total = _flush_range_impl(
-                self.state, self.start_window, new_start, compact=self._flush_compact
-            )
-            self._pending_flush.append(
-                self._make_flush_entry(packed, total, self.start_window, new_start)
-            )
+            with self.tracer.span(SPAN_WINDOW_ADVANCE):
+                # flushed windows must see every accumulated row of the
+                # closing span; merge mode folds only that span
+                if self.config.fold_mode == "merge":
+                    self._fold_span(new_start)
+                else:
+                    self._fold()
+                self.state, packed, total = _flush_range_impl(
+                    self.state, self.start_window, new_start, compact=self._flush_compact
+                )
+                self._pending_flush.append(
+                    self._make_flush_entry(packed, total, self.start_window, new_start)
+                )
             self.start_window = new_start
             self.n_advances += 1
 
@@ -889,7 +925,8 @@ class WindowManager:
         if (not force and cached is not None
                 and now - cached.taken_monotonic < self.config.min_snapshot_interval):
             return cached
-        snap = self._read_open_snapshot(now)
+        with self.tracer.span(SPAN_QUERY_SNAPSHOT):
+            snap = self._read_open_snapshot(now)
         self.snapshot_seq += 1
         snap.seq = self.snapshot_seq
         self._snap_lanes_dev = torch.tensor(
@@ -1015,8 +1052,9 @@ class WindowManager:
         def on_retry(_attempt, _exc):
             self.dispatch_retries += 1
 
-        out = retry_call(dispatch_once, self.retry_policy, on_retry=on_retry,
-                         rng=self._retry_rng, classify=is_dispatch_transient)
+        with self.tracer.span(SPAN_INGEST_DISPATCH):
+            out = retry_call(dispatch_once, self.retry_policy, on_retry=on_retry,
+                             rng=self._retry_rng, classify=is_dispatch_transient)
         if self.sk is not None:
             self.acc, stats_dev, self.sk = out
         else:
@@ -1074,6 +1112,54 @@ class WindowManager:
         # ring was drained by settle() above)
         self._sync_device_sw()
         return flushed
+
+    # -- device profiling plane ------------------------------------------
+    def device_planes(self) -> dict:
+        """Profilable face: every device-resident plane this manager
+        owns, by name (the reference's vocabulary) — the ledger reads
+        storage sizes only, zero fetches. The enumeration IS the
+        ownership contract: a new device buffer on the manager without a
+        plane entry here fails the ledger reconciliation."""
+        planes: dict[str, object] = {
+            "stash": self.state,
+            "accumulator": self.acc,  # None until the first batch
+            "stats_ring": [self._cb_ring, self._sw_state],
+            "lanes": [self._fold_rows_dev, self._zero_lanes, self._snap_lanes_dev],
+            # async-drain holds: the deferred counter block plus every
+            # dispatched-but-unfetched flush's device handles
+            "pending_flush": [self._pending_stats] + [
+                [e.packed, e.total, e.pend, e.pend_win, e.pend_n, e.wide_rows,
+                 e.wide_wins] + [[tf.packed, tf.total] for tf in e.tiers]
+                for e in self._pending_flush
+            ],
+        }
+        if self.sk is not None:
+            sk = self.sk
+            if _pool_mode(sk):
+                # pooled memory splits the plane four ways: the compact
+                # arena, the wide arena, the pending drain buffer and the
+                # routing/counter meta
+                planes["sketch_pool_hot"] = [sk.p_hll, sk.p_cms, sk.p_hist, sk.p_tkv,
+                                             sk.p_tkh, sk.p_tkl, sk.p_tia, sk.p_tib]
+                planes["sketch_pool_wide"] = [sk.hll, sk.cms, sk.hist, sk.tk_votes,
+                                              sk.tk_hi, sk.tk_lo, sk.tk_ida, sk.tk_idb]
+                planes["sketch_pending"] = [sk.pend, sk.pend_win]
+                planes["sketch_meta"] = [sk.win, sk.count, sk.slot_of, sk.wide_close,
+                                         sk.wide_count, sk.rows, sk.shed, sk.pend_n,
+                                         sk.pool_spill, sk.pool_promos, sk.promote_fill]
+            else:
+                planes["sketch"] = sk
+        if self.cascade is not None:
+            planes["cascade"] = [self.cascade.tiers, self.cascade.accs, self.cascade.fills,
+                                 self.cascade.lanes_dev]
+        return planes
+
+    def close(self) -> None:
+        """Eager teardown of the ledger registration (the weakref gets
+        there eventually; close() makes it synchronous)."""
+        from ..profiling.ledger import default_ledger
+
+        default_ledger.deregister(self._ledger_src)
 
     def get_counters(self) -> dict:
         """Fetch-free counters: host ints and the counter-block mirror."""

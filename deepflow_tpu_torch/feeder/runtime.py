@@ -44,11 +44,15 @@ is retried, contained, or counted:
 `pipeline.stage()` / `pipeline.ingest_staged()`; `ShardedFeedSink` to a
 parallel/sharded.ShardedWindowManager through `swm.ingest()`.
 
+Self-telemetry: the runtime registers itself (`tpu_feeder`) and its
+tracer (`tpu_feeder_spans`) on the default StatsCollector, and
+`PipelineFeedSink` registers its double-buffered staged upload on the
+device-memory ledger (plane `staged`).
+
 Not ported with it: `WindowManagerFeedSink` and `DocChunk` (the pb-Document path through
-`ingest/codec.py`), the push-event bus and lineage hooks of
+`ingest/codec.py`), and the push-event bus and lineage hooks of
 `FeederRuntime` (`event_bus=`, `lineage=`, and `FeederConfig.event_db` /
-`event_table`), and the `register_countable` / `register_profilable`
-registrations (the sink's staged upload on the HBM ledger).
+`event_table`).
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ from ..utils.spans import (
     SPAN_FEEDER_DRAIN,
     SpanTracer,
 )
+from ..utils.stats import register_countable
 from .flowframe import decode_flowframe_body, peek_rows
 
 _log = logging.getLogger(__name__)
@@ -163,6 +168,17 @@ class PipelineFeedSink(_FlowFrameCodec):
         self._held = None  # (StagedBatch, shed, rows) awaiting dispatch
         self._shed_carry = 0  # shed count whose batch had no valid rows
         self.lost_records = 0  # rows lost to failed dispatches
+        # the staged upload awaiting dispatch is device memory this sink
+        # owns: weakly on the ledger, next to the manager's planes
+        from ..profiling.ledger import register_profilable
+
+        self._ledger_src = register_profilable("feeder_sink", self)
+
+    def device_planes(self) -> dict:
+        held = self._held
+        staged = held[0] if held is not None else None
+        return {"staged": None if staged is None else [
+            list(staged.tags.values()), staged.meters, staged.valid]}
 
     def emit(self, chunks: list[FlowChunk], rows: int, bucket: int, shed: int) -> list:
         fb = FlowBatch.concat([c.fb for c in chunks])
@@ -364,6 +380,8 @@ class FeederRuntime:
         # checkpoints or journals MUST check it first
         self.last_checkpoint_ok = True
         self._held_shed_logged = False
+        register_countable("tpu_feeder", self, name=name)
+        register_countable("tpu_feeder_spans", self.tracer, name=name)
 
     # -- countable face --------------------------------------------------
     def get_counters(self) -> dict:

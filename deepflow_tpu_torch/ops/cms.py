@@ -8,6 +8,10 @@ one avalanche round. `row_slots` is the device form over u32 lanes
 blocks. The CUDA sketch kernel (kernels/sketch_fused.cu) recomputes the
 same columns with native uint32 arithmetic. `cms_expand` up-tiles a
 pooled compact plane (aggregator/sketchplane.py, pool mode).
+
+The standalone functions `cms_init`, `cms_update` (in place, int32
+adds that wrap like XLA's; the state is returned), `cms_query` (min over
+rows) and `cms_merge` are plain tensor functions on the caller's device.
 """
 
 from __future__ import annotations
@@ -15,9 +19,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from .histogram import saturate_i32
 from .u32 import MASK, mul
 
 CMS_MIX = 0x2C1B3C6D
+
+
+def cms_init(depth: int = 4, width: int = 1 << 16, *, device=None) -> torch.Tensor:
+    """[depth, width] int32 zero counters on `device` (width a power of 2)."""
+    assert width & (width - 1) == 0, "width must be a power of two"
+    return torch.zeros((depth, width), dtype=torch.int32, device=resolve_device(device))
 
 
 def row_slots(hash_hi: torch.Tensor, hash_lo: torch.Tensor, depth: int,
@@ -31,6 +43,33 @@ def row_slots(hash_hi: torch.Tensor, hash_lo: torch.Tensor, depth: int,
         h = h ^ (h >> 12)
         cols.append((h & (width - 1)) + d * width)
     return torch.stack(cols)
+
+
+def as_i32(weight: torch.Tensor) -> torch.Tensor:
+    """A weight lane as int32 the way XLA casts it: floats saturate
+    (`saturate_i32`), integers keep their low 32 bits."""
+    return saturate_i32(weight) if weight.is_floating_point() else weight.to(torch.int32)
+
+
+def cms_update(state: torch.Tensor, hash_hi, hash_lo, weight, valid) -> torch.Tensor:
+    """Add `weight` (cast to int32) for each valid row, in place; the
+    state is returned."""
+    depth, width = state.shape
+    slots = row_slots(hash_hi, hash_lo, depth, width)  # [depth, N]
+    w = torch.where(valid, as_i32(weight), 0)
+    state.view(-1).index_add_(0, slots.reshape(-1), w[None, :].expand(depth, -1).reshape(-1))
+    return state
+
+
+def cms_query(state: torch.Tensor, hash_hi, hash_lo) -> torch.Tensor:
+    """[N] frequency estimates: the min over rows."""
+    depth, width = state.shape
+    slots = row_slots(hash_hi, hash_lo, depth, width)
+    return state.reshape(-1)[slots.reshape(-1)].reshape(depth, -1).min(dim=0).values
+
+
+def cms_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b
 
 
 def row_slots_np(hash_hi, hash_lo, depth: int, width: int) -> np.ndarray:

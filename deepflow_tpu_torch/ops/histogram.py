@@ -10,6 +10,13 @@ Pooled compact slots (aggregator/sketchplane.py, pool mode) keep
 bins // factor bins: the compact bin is the wide bin divided by the
 factor (`loghist_coarsen_bin`, exact), and `loghist_expand` puts each
 compact bin's mass at the central wide bin it covers.
+
+The standalone functions `loghist_init`, `loghist_update` (in place; the
+state is returned), `loghist_quantiles` and `loghist_merge` are plain
+tensor functions on the caller's device. `loghist_quantiles` is the
+reference's float32 cumsum + rank-threshold walk: the bin of quantile q
+is the number of bins whose cumulative count lies strictly below
+q · total (searchsorted side="left"), read at its geometric centre.
 """
 
 from __future__ import annotations
@@ -19,12 +26,57 @@ import math
 
 import torch
 
+from ..device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class LogHistSpec:
     bins: int = 1024
     vmin: float = 1.0  # values at/below vmin land in bin 0
     gamma: float = 1.02
+
+
+def loghist_init(num_groups: int, spec: LogHistSpec, *, device=None) -> torch.Tensor:
+    """[num_groups, bins] int32 zero counts on `device`."""
+    return torch.zeros((num_groups, spec.bins), dtype=torch.int32,
+                       device=resolve_device(device))
+
+
+def loghist_update(state: torch.Tensor, group_ids, values, valid,
+                   spec: LogHistSpec) -> torch.Tensor:
+    """Count each valid value into its group's bin, in place; the state
+    is returned. Rows whose group lies outside the plane are dropped."""
+    g, bins = state.shape
+    b = loghist_bin(values, spec).to(torch.int64)
+    gid = group_ids.to(torch.int64)
+    ok = valid & (gid >= 0) & (gid < g)
+    state.view(-1).index_add_(0, torch.where(ok, gid * bins + b, 0), ok.to(torch.int32))
+    return state
+
+
+def loghist_centers(spec: LogHistSpec, device=None) -> torch.Tensor:
+    """[bins] float32 geometric bin centres vmin · gamma^(i + 0.5)."""
+    i = torch.arange(spec.bins, dtype=torch.float32, device=device)
+    return spec.vmin * torch.pow(torch.tensor(spec.gamma, dtype=torch.float32,
+                                              device=device), i + 0.5)
+
+
+def loghist_quantiles(state: torch.Tensor, spec: LogHistSpec,
+                      qs: tuple[float, ...]) -> torch.Tensor:
+    """[num_groups, len(qs)] float32 quantile estimates (bin centres); 0
+    for an empty group."""
+    cum = torch.cumsum(state.to(torch.float32), dim=1)
+    total = cum[:, -1:]
+    centers = loghist_centers(spec, state.device)
+    out = []
+    for q in qs:
+        idx = (cum < q * total).sum(dim=1).clamp(0, spec.bins - 1)
+        out.append(torch.where(total[:, 0] > 0, centers[idx], 0.0))
+    return torch.stack(out, dim=1)
+
+
+def loghist_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b
 
 
 def saturate_i32(x: torch.Tensor) -> torch.Tensor:

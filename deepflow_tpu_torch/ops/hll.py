@@ -1,11 +1,16 @@
 """HyperLogLog register math (port of deepflow_tpu/ops/hll.py).
 
-The sketch plane keeps a dense [G, m] int32 register plane per open
-window; an update is a scatter-max of rho = clz32(hash_hi) + 1 at
-register hash_lo & (m-1). `clz32` runs on the device over u32 lanes
-(int64 tensors, ops/u32.py); the estimate and the packed-register
-inverse are host numpy over fetched blocks, as in the reference, and the
-packing runs on both sides.
+A dense [G, m] int32 register plane per sketch (m = 2^precision); an
+update is a scatter-max of rho = clz32(hash_hi) + 1 at register
+hash_lo & (m-1), a merge the register-wise max. The standalone
+functions (`hll_init`, `hll_update`, `hll_estimate`, `hll_merge`) are
+plain tensor functions on the caller's device: `hll_update` writes the
+state in place and returns it (the reference donates its input), and
+`hll_estimate` computes in float32 as the reference's 32-bit JAX does.
+`clz32` runs over u32 lanes (int64 tensors, ops/u32.py); the
+sketch plane's estimate and the packed-register inverse are host numpy
+over fetched blocks, as in the reference, and the packing runs on both
+sides.
 """
 
 from __future__ import annotations
@@ -13,7 +18,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .u32 import MASK
+
+
+def hll_init(num_groups: int, precision: int = 14, *, device=None) -> torch.Tensor:
+    """[num_groups, 2^precision] int32 zero registers on `device`."""
+    return torch.zeros((num_groups, 1 << precision), dtype=torch.int32,
+                       device=resolve_device(device))
 
 
 def clz32(x: torch.Tensor) -> torch.Tensor:
@@ -28,6 +40,42 @@ def clz32(x: torch.Tensor) -> torch.Tensor:
         n = torch.where(has_s_zeros, n + s, n)
         x = torch.where(has_s_zeros, (x << s) & MASK, x)
     return torch.where(zero_in, 32, n)
+
+
+def hll_update(state: torch.Tensor, group_ids, hash_hi, hash_lo, valid) -> torch.Tensor:
+    """Scatter-max one batch of observations into `state` (in place; the
+    state is returned). group_ids [N] int (rows of state); hash_hi/lo
+    [N] u32 lanes (int64) of the distinct-counted entity; valid [N]
+    bool. Rows that are invalid or whose group lies outside the plane
+    are dropped."""
+    g, m = state.shape
+    reg = hash_lo & (m - 1)
+    rho = (clz32(hash_hi) + 1).to(torch.int32)  # 1..33
+    gid = group_ids.to(torch.int64)
+    ok = valid & (gid >= 0) & (gid < g)
+    # dropped rows max a 0 into cell 0: registers are never negative
+    state.view(-1).scatter_reduce_(0, torch.where(ok, gid * m + reg, 0),
+                                   torch.where(ok, rho, 0), "amax")
+    return state
+
+
+def hll_estimate(state: torch.Tensor) -> torch.Tensor:
+    """[num_groups] float32 cardinality estimates (classic HLL with the
+    small-range linear-counting correction), in float32 as the
+    reference computes them."""
+    m = state.shape[1]
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    regs = state.to(torch.float32)
+    raw = alpha * m * m / torch.exp2(-regs).sum(dim=1)
+    zeros = (state == 0).to(torch.float32).sum(dim=1)
+    linear = m * torch.log(m / torch.clamp(zeros, min=1.0))
+    use_linear = (raw <= 2.5 * m) & (zeros > 0)
+    return torch.where(use_linear, linear, raw)
+
+
+def hll_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Register-wise max: associative and commutative."""
+    return torch.maximum(a, b)
 
 
 def hll_estimate_np(state) -> np.ndarray:

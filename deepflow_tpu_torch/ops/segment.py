@@ -21,6 +21,13 @@ are already sorted by (slot, hi, lo) without sorting them again:
 binary search (`lex_searchsorted`) into the other run, and
 `merge_order` inverts the ranks — a permutation — with one scatter.
 
+Sort census. `sort_census()` opens a per-thread tally that `note_sort`
+bumps once per LOGICAL sort: one `sort_perm` call is one sort, although
+it runs two `torch.sort` passes. profiling/census.py opens it around a
+bucket's first dispatch, the twin of the reference's jaxpr walk over
+`sort` equations (`census.py:91-132`). Outside a tally `note_sort` is
+one attribute read.
+
 Layout at the interface matches the reference: tags column-major
 [T, N], meters row-major [N, M] (row-contiguous — the kernel reads one
 row per step), key lanes u32 (ops/u32.py lane rule).
@@ -30,6 +37,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -39,6 +48,44 @@ from .u32 import U32_MAX
 
 # Sentinel slot value for invalid rows: sorts after every real window.
 SENTINEL_SLOT = 0xFFFFFFFF
+
+
+def _use_shared_sort() -> bool:
+    """The sketch plane's one shared batch sort (default). Bit-exact vs
+    the multi-sort oracle, which DEEPFLOW_SHARED_SORT=0 restores: one
+    fresh 3-key sort per top-K hash row and fold phase — the
+    reference's knob, read at call time."""
+    return os.environ.get("DEEPFLOW_SHARED_SORT", "1") != "0"
+
+
+_SORTS = threading.local()
+
+
+@contextmanager
+def sort_census():
+    """Tally the logical sorts this thread runs inside the block:
+    yields {"sorts": n, "plane_sorts": n}, the plane's share filled by
+    aggregator/sketchplane.sketch_plane_step. Tallies nest; the inner
+    one counts alone."""
+    prev = getattr(_SORTS, "tally", None)
+    tally = {"sorts": 0, "plane_sorts": 0}
+    _SORTS.tally = tally
+    try:
+        yield tally
+    finally:
+        _SORTS.tally = prev
+
+
+def active_sort_tally() -> dict | None:
+    """This thread's open tally, or None."""
+    return getattr(_SORTS, "tally", None)
+
+
+def note_sort() -> None:
+    """Count one logical sort into this thread's open tally, if any."""
+    tally = getattr(_SORTS, "tally", None)
+    if tally is not None:
+        tally["sorts"] += 1
 
 
 def _use_fused_gather() -> bool:
@@ -68,6 +115,7 @@ def sort_perm(slot, key_hi, key_lo) -> torch.Tensor:
     """The stable (slot, hi, lo) order of three u32 lanes as an int64
     permutation (sorted position → original row): a stable pass on lo,
     then one on the packed ((slot − 2^31) << 32) + hi."""
+    note_sort()
     p1 = torch.sort(key_lo, stable=True).indices
     packed = ((slot[p1] - (1 << 31)) << 32) + key_hi[p1]
     return p1[torch.sort(packed, stable=True).indices]

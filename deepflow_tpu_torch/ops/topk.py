@@ -1,5 +1,4 @@
-"""Invertible top-K heavy-hitter sketch (port of deepflow_tpu/ops/topk.py,
-shared-sort path).
+"""Invertible top-K heavy-hitter sketch (port of deepflow_tpu/ops/topk.py).
 
 `[rows, cols]` buckets per window slot; each key maps to one bucket per
 hash row through an avalanche of its 64-bit fingerprint, and every
@@ -14,11 +13,13 @@ reference.
 
 Lane dtypes: votes int32; key and id lanes int32 bit patterns of u32
 values (ops/u32.to_i32_bits), so that a packed block row is one int32
-concatenation. The reference's multi-sort oracle `topk_update`
-(DEEPFLOW_SHARED_SORT=0) is not ported: the port always takes the
-shared sort, the reference's default. `topk_tile` (pool promotion) and
-`topk_merge` act on lane tuples; `topk_candidates`/`topk_select` are the
-host inversion over fetched blocks.
+concatenation. `topk_init` builds such lanes; `topk_update` is the
+reference's multi-sort ORACLE — one fresh stable 3-key (bucket, key_hi,
+key_lo) sort per hash row — which the sketch plane takes under
+DEEPFLOW_SHARED_SORT=0 and which the shared-sort path equals bit for
+bit. `topk_tile` (pool promotion) and `topk_merge` act on lane tuples;
+`topk_candidates`/`topk_select` are the host inversion over fetched
+blocks.
 """
 
 from __future__ import annotations
@@ -26,10 +27,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from .cms import as_i32
+from .segment import sort_perm
 from .u32 import MASK, mul, to_i32_bits
 
 MIX_A = 0x7FEB352D
 MIX_B = 0x846CA68B
+
+
+def topk_init(rows: int, cols: int, ring: int = 1, *, device=None):
+    """→ (votes, key_hi, key_lo, id_a, id_b) int32 lanes, each [ring,
+    rows, cols] on `device` (ring = per-window slots; 1 = a single
+    sketch). votes <= 0 marks an empty bucket."""
+    dev = resolve_device(device)
+    return tuple(torch.zeros((ring, rows, cols), dtype=torch.int32, device=dev)
+                 for _ in range(5))
 
 
 def bucket_cols(key_hi: torch.Tensor, key_lo: torch.Tensor, row: int,
@@ -74,6 +87,60 @@ def _apply_challengers(lanes, challengers):
     return votes, l_hi, l_lo, l_ia, l_ib
 
 
+def _heaviest_run(seg, rw, s_hi, s_lo, s_ia, s_ib, segs: int) -> tuple:
+    """One hash row's challengers over rows in sorted order: per bucket
+    `seg` (segs = none) the heaviest run weight `rw` and its first row
+    (the stable tie-break) → (got, h_hi, h_lo, h_ia, h_ib, hw), flat
+    [segs], key/id lanes as int32 bits."""
+    n = s_hi.shape[0]
+    dev = s_hi.device
+    heavy_w = torch.full((segs + 1,), -(2 ** 31), dtype=torch.int32, device=dev)
+    heavy_w.scatter_reduce_(0, seg, rw, "amax")
+    heavy_w = heavy_w[:segs]
+    is_heavy = (seg < segs) & (rw == heavy_w[seg.clamp(max=segs - 1)])
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    win_row = torch.full((segs + 1,), n, dtype=torch.int64, device=dev)
+    win_row.scatter_reduce_(0, seg, torch.where(is_heavy, iota, n), "amin")
+    win_row = win_row[:segs]
+    got = win_row < n
+    wr = win_row.clamp(0, n - 1)
+    hw = torch.where(got, heavy_w.clamp(min=0), 0)
+    return (got, to_i32_bits(s_hi[wr]), to_i32_bits(s_lo[wr]), to_i32_bits(s_ia[wr]),
+            to_i32_bits(s_ib[wr]), hw)
+
+
+def topk_update(lanes, slot, key_hi, key_lo, id_a, id_b, weight, valid):
+    """One batch of weighted observations into the [R, d, C] lanes — the
+    multi-sort oracle: per hash row one fresh stable (bucket, key_hi,
+    key_lo) sort, run weights, and per bucket the heaviest run's first
+    row as the challenger. `slot` [N] is the per-row ring index; rows
+    with slot outside [0, R) or valid False are dropped. key/id lanes
+    are u32 (int64); `weight` is cast to int32 as XLA casts it. Returns
+    new lane tensors."""
+    r_ring, d, c = lanes[0].shape
+    n = key_hi.shape[0]
+    segs = r_ring * c
+    if n == 0:  # no row: no bucket gets a challenger
+        return tuple(x.clone() for x in lanes)
+    slot = slot.to(torch.int64)
+    w = torch.where(valid, as_i32(weight), 0)
+    ok = valid & (slot >= 0) & (slot < r_ring)
+    challengers = []
+    for r in range(d):
+        seg = torch.where(ok, slot * c + bucket_cols(key_hi, key_lo, r, c), segs)
+        perm = sort_perm(seg, key_hi, key_lo)
+        s_seg, s_hi, s_lo = seg[perm], key_hi[perm], key_lo[perm]
+        first = torch.ones(n, dtype=torch.bool, device=key_hi.device)
+        first[1:] = ((s_seg[1:] != s_seg[:-1]) | (s_hi[1:] != s_hi[:-1])
+                     | (s_lo[1:] != s_lo[:-1]))
+        run_id = torch.cumsum(first, 0) - 1
+        run_w = torch.zeros(n, dtype=torch.int32, device=key_hi.device)
+        run_w.index_add_(0, run_id, w[perm])
+        challengers.append(_heaviest_run(s_seg, run_w[run_id], s_hi, s_lo, id_a[perm],
+                                         id_b[perm], segs))
+    return _apply_challengers(lanes, challengers)
+
+
 def topk_challengers_presorted(s_slot, s_hi, s_lo, s_ia, s_ib, rw, s_mask,
                                r_ring: int, d: int, c: int):
     """Per-hash-row challenger extraction from the ALREADY SORTED batch
@@ -83,31 +150,13 @@ def topk_challengers_presorted(s_slot, s_hi, s_lo, s_ia, s_ib, rw, s_mask,
     free), so the shared order restricted to a bucket is (key, original
     position): the heaviest run wins, its first row on ties. Returns the
     `_apply_challengers` input list, id lanes as int32 bits."""
-    n = s_hi.shape[0]
-    dev = s_hi.device
     segs = r_ring * c
-    if n == 0:  # no row: no bucket got a challenger
-        none = torch.zeros((segs,), dtype=torch.int32, device=dev)
+    if s_hi.shape[0] == 0:  # no row: no bucket got a challenger
+        none = torch.zeros((segs,), dtype=torch.int32, device=s_hi.device)
         return [(none != 0,) + (none,) * 5 for _ in range(d)]
-    iota = torch.arange(n, dtype=torch.int64, device=dev)
-    challengers = []
-    for r in range(d):
-        col = bucket_cols(s_hi, s_lo, r, c)
-        seg = torch.where(s_mask, s_slot * c + col, segs)
-        heavy_w = torch.full((segs + 1,), -(2 ** 31), dtype=torch.int32, device=dev)
-        heavy_w.scatter_reduce_(0, seg, rw, "amax")
-        heavy_w = heavy_w[:segs]
-        in_seg = seg < segs
-        is_heavy = in_seg & (rw == heavy_w[seg.clamp(max=segs - 1)])
-        win_row = torch.full((segs + 1,), n, dtype=torch.int64, device=dev)
-        win_row.scatter_reduce_(0, seg, torch.where(is_heavy, iota, n), "amin")
-        win_row = win_row[:segs]
-        got = win_row < n
-        wr = win_row.clamp(0, n - 1)
-        hw = torch.where(got, heavy_w.clamp(min=0), 0)
-        challengers.append((got, to_i32_bits(s_hi[wr]), to_i32_bits(s_lo[wr]),
-                            to_i32_bits(s_ia[wr]), to_i32_bits(s_ib[wr]), hw))
-    return challengers
+    return [_heaviest_run(
+        torch.where(s_mask, s_slot * c + bucket_cols(s_hi, s_lo, r, c), segs), rw, s_hi, s_lo,
+        s_ia, s_ib, segs) for r in range(d)]
 
 
 def topk_tile(lanes, cols: int):

@@ -32,9 +32,19 @@ fetch passes the `aggregator.window.host_fetch` seam (late-bound, so a
 test can count it) behind the `chaos.SITE_FETCH` seam and the retry
 policy; every dispatch behind `chaos.SITE_DISPATCH`.
 
-Not ported: lineage (`attach_lineage`), `telemetry()`, tracer spans,
-the counter and profiling registrations, and the datasource
-registration of the cascade tiers.
+Self-observability, as in the reference: the manager emits the
+pipeline stage spans on its own tracer (`ingest.dispatch`,
+`window.advance` — ONE span per advance, the sketch close before the
+append and the fold after it measured together — `window.fold`,
+`flush.drain`, `query.snapshot`; the sharded path has no counter block,
+so no `stats.fetch`), registers its counters (`tpu_sharded_pipeline`)
+and spans (`tpu_sharded_pipeline_spans`) on the default StatsCollector
+and its planes on the device-memory ledger with `devices=D`, lists its
+cascade tiers with the server's datasource registry, and reports
+`telemetry()`: counters, span summary and the per-plane bytes with the
+device count.
+
+Not ported: lineage (`attach_lineage`).
 """
 
 from __future__ import annotations
@@ -97,6 +107,15 @@ from ..ops.histogram import LogHistSpec
 from ..ops.segment import SENTINEL_SLOT
 from ..ops.u32 import U32_MAX, from_numpy_u32, to_i32_bits
 from ..utils.retry import RetryPolicy, decorrelated_rng, is_dispatch_transient, retry_call
+from ..utils.spans import (
+    SPAN_FLUSH_DRAIN,
+    SPAN_INGEST_DISPATCH,
+    SPAN_QUERY_SNAPSHOT,
+    SPAN_WINDOW_ADVANCE,
+    SPAN_WINDOW_FOLD,
+    SpanTracer,
+)
+from ..utils.stats import register_countable
 from .mesh import MESH_AXES
 
 # the per-window plane is the single-chip SketchState, one per shard
@@ -520,6 +539,9 @@ class ShardedWindowManager:
             self.tier_fills = [None] * len(self._cascade_intervals)
             self.tier_watermarks = [0] * len(self._cascade_intervals)
             self._tier_pending_blocks = [{} for _ in self._cascade_intervals]
+            from ..server.datasource import register_cascade_tiers
+
+            register_cascade_tiers("flow", self._cascade_intervals, owner=self)
         self.host_fetches = 0
         self.bytes_fetched = 0
         self.bytes_uploaded = 0
@@ -534,6 +556,26 @@ class ShardedWindowManager:
         self._retry_rng = decorrelated_rng(0x5A4DED)
         self.dispatch_retries = 0
         self.fetch_retries = 0
+        self.tracer = SpanTracer(service="deepflow_tpu.sharded_pipeline")
+        # multi-host placement labels: with a MeshTopology, rows carry the
+        # shard group + process so a fleet dashboard can tell hosts apart
+        topo_tags = {}
+        if pipe.topology is not None:
+            topo_tags = {"group": str(pipe.shard_group),
+                         "process": str(pipe.topology.process_index)}
+        self._stats_srcs = [
+            register_countable("tpu_sharded_pipeline", self, devices=str(pipe.n_devices),
+                               **topo_tags),
+            register_countable("tpu_sharded_pipeline_spans", self.tracer,
+                               devices=str(pipe.n_devices), **topo_tags),
+        ]
+        # weakly on the ledger with the device count, so its rows carry
+        # bytes per device next to the totals
+        from ..profiling.ledger import register_profilable
+
+        self._ledger_src = register_profilable(
+            "sharded_window_manager", self, devices=pipe.n_devices,
+            interval=f"{self.interval}s", cascade=str(bool(self._cascade_intervals)))
 
     # WindowManager's fetch: `window.host_fetch` (looked up at each call,
     # so a test can count it) behind the SITE_FETCH seam, retried on
@@ -609,9 +651,32 @@ class ShardedWindowManager:
                                  self.cascade_lanes]
         return planes
 
+    def telemetry(self) -> dict:
+        """JSON-able counters + span summary + the per-plane device bytes
+        with the device count."""
+        from ..profiling.ledger import plane_bytes
+
+        seen: set = set()
+        return {
+            "counters": self.get_counters(),
+            "spans": self.tracer.summary(),
+            "profile": {
+                "hbm_bytes": {name: plane_bytes(tree, seen)[0]
+                              for name, tree in sorted(self.device_planes().items())},
+                "devices": self.pipe.n_devices,
+            },
+        }
+
     def close(self) -> None:
-        """Eager teardown: drop every device plane so its memory returns
-        to the allocator. The manager is unusable afterwards."""
+        """Eager teardown: the manager leaves the ledger, its Countable
+        rows stop, and every device plane is dropped so its memory
+        returns to the allocator. The manager is unusable afterwards."""
+        from ..profiling.ledger import default_ledger
+        from ..utils.stats import default_collector
+
+        default_ledger.deregister(self._ledger_src)
+        for src in self._stats_srcs:
+            default_collector.deregister(src)
         self.stash = self.sketches = self.acc = self._fold_rows_dev = None
         self.tier_stashes, self.tier_accs, self.tier_fills = [], [], []
         self.cascade_lanes = self.global_view = self.pod_1m = None
@@ -622,7 +687,8 @@ class ShardedWindowManager:
         fill cursor resets."""
         if self.fill == 0 or self.acc is None:
             return
-        self.stash, self.acc, self._fold_rows_dev = self.pipe.fold(self.stash, self.acc)
+        with self.tracer.span(SPAN_WINDOW_FOLD):
+            self.stash, self.acc, self._fold_rows_dev = self.pipe.fold(self.stash, self.acc)
         self.fill = 0
 
     def _fold_span(self, hi_window: int):
@@ -631,8 +697,9 @@ class ShardedWindowManager:
         in place, the next full fold reclaims the ring)."""
         if self.fill == 0 or self.acc is None:
             return
-        self.stash, self.acc, self._fold_rows_dev = self.pipe.fold(
-            self.stash, self.acc, hi_window=hi_window)
+        with self.tracer.span(SPAN_WINDOW_FOLD):
+            self.stash, self.acc, self._fold_rows_dev = self.pipe.fold(
+                self.stash, self.acc, hi_window=hi_window)
 
     def _cascade_advance(self, packed, totals, hi: int) -> list:
         """Fold this drain's packed flush rows into each shard's tier
@@ -874,7 +941,8 @@ class ShardedWindowManager:
         if (not force and cached is not None
                 and now - cached.taken_monotonic < self.min_snapshot_interval):
             return cached
-        snap = self._read_open_snapshot(now)
+        with self.tracer.span(SPAN_QUERY_SNAPSHOT):
+            snap = self._read_open_snapshot(now)
         self.snapshot_seq += 1
         snap.seq = self.snapshot_seq
         self._snapshot_cache = snap
@@ -950,8 +1018,15 @@ class ShardedWindowManager:
         # doc flush follows the merge — rows within `delay` land first)
         new_start = max(t_max - self.delay, 0) // self.interval
         advancing = self.start_window < new_start
+        close_us, adv_wall = 0, 0.0
         if advancing:
+            # the advance's work is split around the append (sketch close
+            # before, fold after): measured here and emitted below as ONE
+            # window.advance span, so counts match `window_advances`
+            adv_wall = time.time()
+            t0 = time.perf_counter()
             self.sketches, self.global_view, self.pod_1m = self.pipe.window_close(self.sketches)
+            close_us = int((time.perf_counter() - t0) * 1e6)
 
         per_dev = int(ts_np.shape[0]) // self.pipe.n_devices
         # with the pre-reduce on, every append writes 4 × cap rows
@@ -985,20 +1060,26 @@ class ShardedWindowManager:
         def on_retry(_attempt, _exc):
             self.dispatch_retries += 1
 
-        self.stash, self.acc, self.sketches = retry_call(
-            dispatch_once, self.retry_policy, on_retry=on_retry, rng=self._retry_rng,
-            classify=is_dispatch_transient)
+        with self.tracer.span(SPAN_INGEST_DISPATCH):
+            self.stash, self.acc, self.sketches = retry_call(
+                dispatch_once, self.retry_policy, on_retry=on_retry, rng=self._retry_rng,
+                classify=is_dispatch_transient)
         self.fill += rows_per_device
 
         flushed = []
         if advancing:
+            t0 = time.perf_counter()
             # flushed windows must see every accumulated row of the
             # closing span; merge mode folds only that span
             if self.pipe.config.fold_mode == "merge":
                 self._fold_span(new_start)
             else:
                 self._fold()
-            flushed = self._drain_range(self.start_window, new_start)
+            self.tracer.record(SPAN_WINDOW_ADVANCE,
+                               close_us + int((time.perf_counter() - t0) * 1e6),
+                               start_s=adv_wall)
+            with self.tracer.span(SPAN_FLUSH_DRAIN):
+                flushed = self._drain_range(self.start_window, new_start)
             self.start_window = new_start
             self.n_advances += 1
         return flushed
@@ -1035,8 +1116,11 @@ class ShardedWindowManager:
         """Flush every open window (shutdown path). The open span moves
         past each drained window, so a straggler cannot re-open and
         re-emit it."""
+        # the shutdown fold stays outside window.advance: the span count
+        # equals `window_advances`, as on the single-chip path
         self._fold()
-        flushed = self._drain_range(0, int(SENTINEL_SLOT))
+        with self.tracer.span(SPAN_FLUSH_DRAIN):
+            flushed = self._drain_range(0, int(SENTINEL_SLOT))
         for db in flushed:
             if self.start_window is not None:
                 self.start_window = max(self.start_window,

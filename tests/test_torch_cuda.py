@@ -976,3 +976,88 @@ def test_sql_float32_sums_card_equal_cpu(cuda):
             card = _segment_reduce(v, gid, g + 1, op, cuda)
             host = _segment_reduce(v, gid, g + 1, op, torch.device("cpu"))
             assert np.array_equal(card, host), (n, g, op)
+
+
+# ---------------------------------------------------------------------------
+# the standalone sketch functions and the device-memory ledger
+
+
+def _run_sketch_fns(dev, seed=21):
+    """HLL / count-min / log-histogram / top-K / t-digest through init,
+    update, merge and estimate / query / quantiles on `dev`."""
+    from deepflow_tpu_torch.ops import cms, histogram, hll, tdigest
+
+    rng = np.random.default_rng(seed)
+    n = 20_000
+    kid = rng.integers(0, 3000, n)
+    hi = from_numpy_u32((kid * 2654435761 + 1).astype(np.uint32), dev)
+    lo = from_numpy_u32((kid ^ 0x9E3779B9).astype(np.uint32), dev)
+    gid = torch.from_numpy(rng.integers(0, 4, n)).to(dev)
+    valid = torch.from_numpy(rng.random(n) > 0.05).to(dev)
+    w = torch.from_numpy(rng.integers(1, 900, n).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.lognormal(6.0, 1.5, n).astype(np.float32)).to(dev)
+    spec = histogram.LogHistSpec(bins=1024, vmin=1.0, gamma=1.02)
+    regs = hll.hll_update(hll.hll_init(4, 14, device=dev), gid, hi, lo, valid)
+    regs = hll.hll_merge(regs, hll.hll_update(hll.hll_init(4, 14, device=dev), gid, lo, hi,
+                                              valid))
+    plane = cms.cms_update(cms.cms_init(4, 1 << 16, device=dev), hi, lo, w, valid)
+    plane = cms.cms_merge(plane, plane)
+    hist = histogram.loghist_update(histogram.loghist_init(4, spec, device=dev), gid, vals,
+                                    valid, spec)
+    hist = histogram.loghist_merge(hist, hist)
+    lanes = topk.topk_update(topk.topk_init(2, 1024, 2, device=dev), gid % 3, hi, lo, lo, hi,
+                             w, valid)
+    m, wt = tdigest.tdigest_from_loghist(hist, spec)
+    m2, w2 = tdigest.tdigest_merge(m[0], wt[0], m[1], wt[1])
+    qs = torch.tensor([0.5, 0.95, 0.99], device=dev)
+    ints = {"hll": regs, "cms": plane, "hist": hist, "cms_query": cms.cms_query(plane, hi, lo),
+            **{f"topk{i}": x for i, x in enumerate(lanes)}}
+    floats = {"hll_estimate": hll.hll_estimate(regs),
+              "loghist_quantiles": histogram.loghist_quantiles(hist, spec, (0.5, 0.95, 0.99)),
+              "tdigest_means": m, "tdigest_weights": wt, "merged_means": m2,
+              "merged_weights": w2, "tdigest_quantile": tdigest.tdigest_quantile(m2, w2, qs)}
+    return ints, floats
+
+
+@pytest.mark.cuda
+def test_standalone_sketch_functions_card_equal_cpu(cuda):
+    card_i, card_f = _run_sketch_fns(cuda)
+    host_i, host_f = _run_sketch_fns(torch.device("cpu"))
+    for k in host_i:
+        assert torch.equal(card_i[k].cpu(), host_i[k]), k
+    for k in host_f:
+        torch.testing.assert_close(card_f[k].cpu(), host_f[k], rtol=1e-5, atol=0, msg=k)
+
+
+@pytest.mark.cuda
+def test_ledger_bytes_within_allocated_and_fetch_free(cuda):
+    import gc
+
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.sketchplane import SketchConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+    from deepflow_tpu_torch.ops.histogram import LogHistSpec
+    from deepflow_tpu_torch.profiling import DeviceMemoryLedger
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    sk = SketchConfig(num_groups=8, hll_precision=10, cms_depth=4, cms_width=1 << 12,
+                      hist=LogHistSpec(bins=256, vmin=1.0, gamma=1.05), topk_rows=2,
+                      topk_cols=256, pending=16)
+    pipe = L4Pipeline(PipelineConfig(window=WindowConfig(capacity=1 << 14, sketch=sk),
+                                     batch_size=4096), device=cuda)
+    gen = SyntheticFlowGen(num_tuples=2000, seed=1)
+    for t in range(4):
+        pipe.ingest(gen.flow_batch(4096, 1_700_000_000 + t))
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - before
+    led = DeviceMemoryLedger()
+    led.register("window_manager", pipe.wm)
+    fetches = pipe.wm.host_fetches
+    total = sum(r["bytes"] for r in led.snapshot())
+    assert pipe.wm.host_fetches == fetches  # a snapshot fetches nothing
+    assert 0 < total <= delta
+    pipe.close()

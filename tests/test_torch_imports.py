@@ -58,7 +58,9 @@ def test_port_and_chip_smoke_import_no_jax():
                 "agent.bridge", "agent.policy", "agent.capture", "agent.main", "agent.l7",
                 "agent.l7.engine", "agent.l7.http2", "agent.l7.parsers", "agent.l7.parsers_ext",
                 "agent.l7.parsers_mq", "agent.l7.parsers_rpc", "agent.l7.parsers_w4",
-                "agent.l7.plugins", "ingest.sender"):
+                "agent.l7.plugins", "ingest.sender", "profiling", "profiling.ledger",
+                "profiling.census", "integration", "integration.formats",
+                "integration.dfstats", "utils.provenance"):
         assert f"deepflow_tpu_torch.{mod}" in result["imported"]
     forbidden = [m for m in result["modules"] if _is_forbidden(m)]
     assert forbidden == []
