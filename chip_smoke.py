@@ -218,6 +218,33 @@ loudly with a nonzero exit:
    4-shard ShardedWindowManager at 3k's shape over three of the
    batches (bytes per device = bytes / 4). Printed with the phase's
    wall seconds.
+3o. Window lineage and the push plane, counts zeroed before its main
+   path and read after. (a) 3c's slab L4Pipeline (2^21-row batches,
+   2^18-row stash) over 3f's first four seconds and a drain, every
+   window into a store through docbatch_window_sink and a forced live
+   read after the second ingest: passive, then with a LineageTracker +
+   FreshnessTracker under a frozen clock (both runs profiled), then on
+   the wall clock with every tracker call timed. Windows, sketch blocks,
+   snapshots and host fetches equal the passive run's, and the lineage
+   run's trace holds no device→host copy beyond the passive run's; the
+   span rows, trace trees, hop records and freshness lanes of the
+   frozen-clock run at 2^14-row batches equal the CPU's (the 4b cut).
+   Printed: p50 / p99 of each lag lane on the wall clock and the host µs
+   a hop costs. (b) 3l's METRICS stream at 256 records a second (1 s
+   docs in frames of 256 from 8 agents, ~1k docs a second, ten seconds
+   and a drain) through PyOverwriteQueue → FeederRuntime +
+   WindowManagerFeedSink (buckets 2048/4096/8192) with event_bus= and
+   lineage=, each pump's windows into a store through
+   flow_window_sink(bus=, lineage=) and a collector tick of the
+   freshness lanes into deepflow_system; one SQL and one PromQL standing
+   query, a PromQL rule over tpu_freshness_visibility_lag_ms and a SQL
+   rule, both crossed mid-run. Card = CPU on the windows, the event
+   batches, the subscription results, the alert transitions and the
+   lineage records; `events_published` equals the close events of the
+   pumps' windows, each pump that flushed published exactly one batch,
+   and every stored window has store.insert and query.first. Printed:
+   events per pump and the CUDA-event wall of one SQL subscription
+   re-evaluation and of one SQL rule evaluation.
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
@@ -251,6 +278,7 @@ import contextlib
 import dataclasses
 import inspect
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -773,14 +801,17 @@ def sketch_kernel_parity(dev, *, timed: bool = True, fused=None, **operands) -> 
     }
 
 
-def profile_cycle(cycle):
+def profile_cycle(cycle, *, host_ops: bool = True):
     """One cycle under torch.profiler: wall time (host clock, synced),
     device-busy time (sum of CUDA kernel times — one stream, so kernels
-    do not overlap), the idle share, and the top kernels by time."""
+    do not overlap), the idle share, and the top kernels by time. With
+    `host_ops=False` only device activity is traced (kernels and copies;
+    a cheaper trace of a long cycle)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         cycle()
         torch.cuda.synchronize()
@@ -3790,6 +3821,434 @@ def selfobs_phase(dev, sk_cfg) -> tuple[dict, dict]:
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# 3o. window lineage and the push plane: the lineage tracker on 3c's slab
+# pipeline at full width (fetch parity with the passive twin, card = CPU
+# on the records), then the doc-frame feeder with the event bus, standing
+# SQL / PromQL queries and alert rules over the store it fills
+
+LINEAGE_CLOCK0 = 2_000_000_000.0  # the frozen clock's first reading
+LINEAGE_SNAPSHOT_AT = 1  # a live read after the second ingest: the partial lane
+PUSH_RECORDS = 256  # flow records a second behind the doc stream (~1k docs a second)
+PUSH_SECONDS = 10  # then a drain: windows T0 … T0+9
+PUSH_BUCKETS = (2048, 4096, 8192)
+PUSH_CAPACITY = 1 << 16
+# the frozen clock of (b) runs 1.5 s a pump from T0 + 3, so a window's
+# visibility lag grows 0.5 s a pump from ~5 s: the rule crosses mid-run
+PUSH_VISIBILITY_MS = 7000.0
+PUSH_BYTES_THRESHOLD = 5e7  # the SQL rule: the stored windows' bytes
+
+
+class FrozenClock:
+    """An injectable clock that reads `t` until it is set again: card and
+    CPU runs under one schedule stamp identical hops."""
+
+    def __init__(self, t: float):
+        self.t = float(t)
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def lineage_sig(lin, fr) -> dict:
+    """What the lineage plane recorded: per window its hops and lags and
+    its assembled tree, then the drained span rows, the freshness lanes,
+    histograms and exemplars, and the tracker's counters."""
+    keys = sorted(lin._windows)
+    return {
+        "hops": {k: {h: tuple(getattr(a, f) for f in a.__slots__)
+                     for h, a in lin._windows[k].hops.items()} for k in keys},
+        "lags": {k: dict(lin._windows[k].lags) for k in keys},
+        "trees": {k: lin.assemble(k[1], k[0]) for k in keys},
+        "spans": [dataclasses.astuple(r) for r in lin.drain_spans()],
+        "fresh": fr.get_counters(), "hist": fr.hist_dump(), "exemplars": fr.exemplars(),
+        "counters": lin.get_counters(),
+    }
+
+
+def time_tracker_calls(lin) -> dict:
+    """Wrap every recording method of a LineageTracker instance with a
+    host timer: returns the running {"s": seconds, "calls": n}."""
+    acc = {"s": 0.0, "calls": 0}
+    for name in ("note_admit", "begin_pump", "note_frames", "drop_stamps", "note_journal",
+                 "note_stage", "note_dispatch", "pop_dispatch_stamp", "note_advance",
+                 "note_flush_windows", "note_tier_windows", "note_store_insert",
+                 "note_snapshot", "note_query"):
+        fn = getattr(lin, name)
+
+        def timed(*a, _fn=fn, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                acc["s"] += time.perf_counter() - t0
+                acc["calls"] += 1
+
+        setattr(lin, name, timed)
+    return acc
+
+
+def lineage_pipeline(dev, sk_cfg, batch: int):
+    """3c's slab L4Pipeline (2^18-row stash, unique cap 2^15) at `batch`."""
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+
+    return L4Pipeline(PipelineConfig(
+        window=WindowConfig(capacity=STASH_CAPACITY, accum_batches=ACCUM_BATCHES, delay=DELAY,
+                            sketch=sk_cfg, min_snapshot_interval=0.0),
+        batch_size=batch, batch_unique_cap=min(UNIQUE_CAP, batch)), device=dev)
+
+
+def lineage_run(dev, batches, sk_cfg, *, lineage: bool, clock=None, profile: bool = False,
+                live: bool = False) -> dict:
+    """The pipeline over `batches` (one second each) and a drain, every
+    flushed window into a store through docbatch_window_sink, a forced
+    live read after ingest LINEAGE_SNAPSHOT_AT. With `lineage`, a
+    LineageTracker + FreshnessTracker on `clock` (a FrozenClock steps 10 s
+    an ingest and 1 s to each insert; None is the wall clock). With
+    `profile`, the whole run is one profile_cycle. With `live` (wall
+    clock), the batches replay as live traffic: each waits for the next
+    wall second and carries it as its timestamp, and every tracker call
+    is timed."""
+    from deepflow_tpu_torch.integration.dfstats import docbatch_window_sink
+    from deepflow_tpu_torch.storage.store import ColumnarStore
+    from deepflow_tpu_torch.tracing.lineage import FreshnessTracker, LineageTracker
+
+    pipe = lineage_pipeline(dev, sk_cfg, int(batches[0].size))
+    lin = fr = acc = None
+    if lineage:
+        fr = FreshnessTracker(autoregister=False)
+        lin = LineageTracker("tpu.pipeline", 1, freshness=fr,
+                             clock=clock if clock is not None else time.time)
+        acc = time_tracker_calls(lin) if live else None
+        pipe.attach_lineage(lin)
+    frozen = isinstance(clock, FrozenClock)
+    sink = docbatch_window_sink(ColumnarStore(), lineage=lin)
+    docs, snaps = [], []
+
+    def run():
+        for i, fb in enumerate(batches):
+            if frozen:
+                clock.t = LINEAGE_CLOCK0 + 10.0 * i
+            if live:
+                now = time.time()
+                time.sleep(math.ceil(now) - now)
+                ts = fb.tags["timestamp"].astype(np.int64)
+                fb = dataclasses.replace(fb, tags={**fb.tags, "timestamp": (
+                    ts + (round(time.time()) - int(ts.max()))).astype(np.uint32)})
+            out = pipe.ingest(fb)
+            docs.extend(out)
+            if frozen:
+                clock.t += 1.0
+            sink(out)
+            if i == LINEAGE_SNAPSHOT_AT:
+                snap = pipe.snapshot_open(force=True)
+                snaps.append([(w.window_idx, w.count) for w in snap.windows])
+        if frozen:
+            clock.t = LINEAGE_CLOCK0 + 10.0 * len(batches)
+        out = pipe.drain()
+        docs.extend(out)
+        sink(out)
+
+    t0 = time.perf_counter()
+    trace = profile_cycle(run, host_ops=False) if profile else None
+    if not profile:
+        run()
+        if pipe.device.type == "cuda":
+            torch.cuda.synchronize()
+    res = {"docs": docs, "blocks": pipe.pop_closed_sketches(), "snaps": snaps,
+           "fetches": pipe.wm.host_fetches, "trace": trace, "wall_s": time.perf_counter() - t0}
+    if lineage:
+        res["fresh_hist"] = fr.hist_dump()
+        res["sig"] = lineage_sig(lin, fr)
+        res["hop_timer"] = acc
+        lin.close()
+    pipe.close()
+    return res
+
+
+def lag_quantiles(hist_dump: dict) -> dict:
+    """p50 / p99 ms of each freshness lane from its raw log-histogram."""
+    from deepflow_tpu_torch.tracing.lineage import _FRESH_HIST
+    from deepflow_tpu_torch.utils.spans import loghist_quantiles_np
+
+    out = {}
+    for lane, pairs in sorted(hist_dump.items()):
+        hist = np.zeros(_FRESH_HIST.bins, np.int64)
+        for b, c in pairs:
+            hist[b] = c
+        p50, p99 = loghist_quantiles_np(hist, _FRESH_HIST, (0.5, 0.99))
+        out[lane] = {"p50_ms": float(p50), "p99_ms": float(p99), "samples": int(hist.sum())}
+    return out
+
+
+def push_stream(dev) -> list:
+    """3l's METRICS stream at PUSH_RECORDS records a second: 1 s docs of
+    the port's L4Pipeline on the card over SyntheticFlowGen(5_000, seed=0),
+    in frames of 256 docs from 8 agents, grouped by the second whose
+    ingest produced them (the last group is the drain's)."""
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.datamodel.code import DocumentFlag
+    from deepflow_tpu_torch.ingest.codec import encode_docbatch
+    from deepflow_tpu_torch.ingest.framing import FlowHeader, MessageType, encode_frame
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    gen = SyntheticFlowGen(num_tuples=5_000, seed=0)
+    pipe = L4Pipeline(PipelineConfig(window=WindowConfig(capacity=1 << 17),
+                                     batch_size=PUSH_RECORDS), device=dev)
+    groups, k = [], 0
+    for s in range(PUSH_SECONDS + 1):
+        docs = pipe.ingest(gen.flow_batch(PUSH_RECORDS, T0 + s)) if s < PUSH_SECONDS \
+            else pipe.drain()
+        msgs = [m for db in docs
+                for m in encode_docbatch(db, flags=int(DocumentFlag.PER_SECOND_METRICS))]
+        frames = []
+        for i in range(0, len(msgs), SERVER_FRAME_DOCS):
+            frames.append(encode_frame(FlowHeader(
+                msg_type=int(MessageType.METRICS), agent_id=1 + k % SERVER_AGENTS,
+                organization_id=1), msgs[i:i + SERVER_FRAME_DOCS]))
+            k += 1
+        groups.append(frames)
+    check(pipe.counters["drop_overflow"] == 0, "3o: the stream's pipeline shed docs")
+    return groups
+
+
+def push_run(dev, groups, *, timed: bool = False) -> dict:
+    """The doc feeder and the push plane on `dev` under a frozen clock:
+    PyOverwriteQueue → FeederRuntime + WindowManagerFeedSink (PUSH_BUCKETS)
+    with event_bus= and lineage=; each pump's flushed windows into a store
+    through flow_window_sink(bus=, lineage=), then a collector tick of the
+    freshness lanes into deepflow_system at the newest window's time (and
+    profile_tick_sink(bus)). One SQL and one PromQL standing query, and
+    two alert rules: PromQL over tpu_freshness_visibility_lag_ms and SQL
+    over the stored bytes. With `timed`, one subscription re-evaluation
+    and one SQL rule evaluation are timed with CUDA events after the
+    results are taken."""
+    from deepflow_tpu_torch.aggregator.window import WindowConfig, WindowManager
+    from deepflow_tpu_torch.feeder import FeederConfig
+    from deepflow_tpu_torch.ingest.queues import PyOverwriteQueue
+    from deepflow_tpu_torch.integration import dfstats
+    from deepflow_tpu_torch.ops import segreduce
+    from deepflow_tpu_torch.profiling import DeviceMemoryLedger, profile_tick_sink
+    from deepflow_tpu_torch.querier.alerts import AlertEngine, AlertRule
+    from deepflow_tpu_torch.querier.events import (
+        QueryEventBus,
+        connect_store_events,
+        docbatch_events,
+    )
+    from deepflow_tpu_torch.querier.live import LiveRegistry
+    from deepflow_tpu_torch.querier.subscribe import SubscriptionManager
+    from deepflow_tpu_torch.storage.store import ColumnarStore
+    from deepflow_tpu_torch.tracing.lineage import (
+        HOP_QUERY_FIRST,
+        HOP_STORE_INSERT,
+        FreshnessTracker,
+        LineageTracker,
+        connect_store_reads,
+    )
+    from deepflow_tpu_torch.utils.stats import StatsCollector
+
+    db, table = dfstats.DEEPFLOW_SYSTEM_DB, dfstats.DEEPFLOW_SYSTEM_TABLE
+    clock = FrozenClock(T0 + 3)
+    store = ColumnarStore()
+    dfstats.ensure_system_table(store)
+    bus = QueryEventBus(name="push-3o")
+    connect_store_events(store, bus)
+    batches = []
+    bus.subscribe(lambda evs: batches.append([(type(e).__name__, dataclasses.astuple(e))
+                                              for e in evs]), name="record")
+    col = StatsCollector(interval_s=3600.0)
+    fr = FreshnessTracker(autoregister=True, collector=col)
+    lin = LineageTracker("tpu.pipeline", 1, freshness=fr, clock=clock)
+    col.add_sink(dfstats.system_sink(store))
+    col.add_sink(profile_tick_sink(bus, ledger=DeviceMemoryLedger()))
+    wm = WindowManager(WindowConfig(capacity=PUSH_CAPACITY), device=dev)
+    wm.attach_lineage(lin)
+    q = PyOverwriteQueue(1 << 12)
+    feeder = wm.make_feeder([q], PUSH_BUCKETS, FeederConfig(frames_per_queue=64),
+                            name="push-3o", event_bus=bus, lineage=lin)
+    sink = dfstats.flow_window_sink(store, bus=bus, lineage=lin)
+    connect_store_reads(store, lin, db, table)
+    subs = SubscriptionManager(store, live=LiveRegistry(), cache=False, bus=bus, name="3o",
+                               device=dev)
+    sql_got, prom_got = [], []
+    bytes_sql = (f"SELECT Sum(value) AS bytes, Count(value) AS n FROM {db}.{table} "
+                 f"WHERE metric = '{dfstats.LIVE_METRIC_FLOW_BYTES}'")
+    sql_sub, _ = subs.subscribe_sql(bytes_sql, callback=lambda r, s: sql_got.append(
+        {c: [float(v) for v in r.values[c]] for c in r.columns}))
+    prom_sub, _ = subs.subscribe_promql(
+        f"sum({dfstats.LIVE_METRIC_FLOW_BYTES})", span_s=8, step=1, db=db, table=table,
+        lookback_s=3, callback=lambda r, s: prom_got.append(r))
+    eng = AlertEngine(store, live=LiveRegistry(), bus=bus, name="3o", log_sink=False,
+                      device=dev)
+    fired = []
+    eng.add_sink(fired.append, name="record")
+    eng.add_rule(AlertRule(name="visibility_lag_high", query="tpu_freshness_visibility_lag_ms",
+                           comparator=">", threshold=PUSH_VISIBILITY_MS, for_s=0))
+    eng.add_rule(AlertRule(name="bytes_high", engine="sql", comparator=">=",
+                           threshold=PUSH_BYTES_THRESHOLD,
+                           query=f"SELECT Sum(value) AS s FROM {db}.{table} WHERE metric = "
+                                 f"'{dfstats.LIVE_METRIC_FLOW_BYTES}'"))
+    windows, pump_batches, expected = [], [], 0
+    seg0 = segreduce.LAUNCHES["segreduce_gather"]
+    t0 = time.perf_counter()
+    for i, group in enumerate(groups):
+        clock.t = T0 + 3 + 1.5 * i
+        for frame in group:
+            q.put(frame)
+        n0 = len(batches)
+        out = feeder.pump()
+        # the batches the pump itself published (the handlers publish none)
+        pump_batches.append([len(b) for b in batches[n0:]])
+        expected += len(docbatch_events(out, db=db, table=table))
+        check(len(pump_batches[-1]) == (1 if out else 0),
+              f"3o: pump {i} published {len(pump_batches[-1])} batches for {len(out)} windows")
+        if out:
+            clock.t += 0.5
+            sink(out)
+            col.tick(now=max(f.start_time for f in out))
+        windows += out
+    clock.t += 1.0
+    out = wm.flush_all()
+    windows += out
+    sink(out)
+    col.tick(now=max(f.start_time for f in out))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counters = feeder.get_counters()
+    check(counters["events_published"] == expected > 0,
+          f"3o: events_published {counters['events_published']}, expected {expected}")
+    inserted = [(1, f.window_idx) for f in windows if f.count]
+    check(all(HOP_STORE_INSERT in lin.record_of(w).hops and HOP_QUERY_FIRST
+              in lin.record_of(w).hops for _, w in inserted),
+          "3o: a stored window lacks store.insert or query.first")
+    res = {
+        "windows": [(f.window_idx, f.count, f.key_hi.tobytes(), f.key_lo.tobytes(),
+                     f.tags.tobytes(), f.meters.tobytes()) for f in windows],
+        "batches": list(batches), "sql": list(sql_got), "promql": list(prom_got),
+        "fired": [{k: v for k, v in f.items()} for f in fired],
+        "states": {r["name"]: (r["state"], r["transitions"]) for r in eng.list_rules()},
+        "sig": lineage_sig(lin, fr), "feeder": {k: v for k, v in counters.items()},
+        "expected_events": expected, "pump_batches": pump_batches,
+        "segreduce_gather": segreduce.LAUNCHES["segreduce_gather"] - seg0,
+        "wall_s": wall, "docs": sum(f.count for f in windows),
+    }
+    if timed:
+        last = max(f.start_time for f in windows) + 1
+        res["subscription_eval_ms"] = time_ms(lambda: subs.evaluate(sql_sub, now=last))
+        res["alert_eval_ms"] = time_ms(lambda: eng.evaluate_rule("bytes_high", now=last))
+    subs.close()
+    eng.close()
+    lin.close()
+    fr.close()
+    wm.close()
+    return res
+
+
+def lineage_phase(dev, sk_cfg) -> tuple[dict, dict]:
+    """Phase 3o. Counts zeroed before its main path ((a) the lineage run
+    at full width, (b) the doc feeder with the push plane) and read
+    after. Returns (launches, summary)."""
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    t_phase = time.perf_counter()
+    gen = SyntheticFlowGen(num_tuples=10_000, seed=0)
+    batches = [gen.flow_batch(BATCH, T0 + dt) for dt in SELFOBS_SECONDS]
+    groups = push_stream(dev)
+    reset_all_launch_counts()
+    # (a) lineage at full width: passive, frozen-clock lineage (both
+    # traced), then the wall clock with every tracker call timed
+    passive = lineage_run(dev, batches, sk_cfg, lineage=False, profile=True)
+    frozen = lineage_run(dev, batches, sk_cfg, lineage=True, clock=FrozenClock(LINEAGE_CLOCK0),
+                         profile=True)
+    wall = lineage_run(dev, batches, sk_cfg, lineage=True, live=True)
+    # (b) the doc feeder and the push plane
+    card_push = push_run(dev, groups, timed=True)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    check(launches["segreduce_gather"] > 0 and launches["sketch_fused"] > 0,
+          f"3o launches {launches}")
+    check(card_push["segreduce_gather"] > 0, "3o: the doc feeder's folds launched no segreduce")
+    del batches
+
+    check(same_docs(frozen["docs"], passive["docs"])
+          and same_blocks(frozen["blocks"], passive["blocks"]),
+          "3o: the lineage run's windows or sketch blocks differ from the passive run's")
+    for run in (frozen, wall):  # the live replay's timestamps differ; its fetches do not
+        check(run["fetches"] == passive["fetches"]
+              and [[c for _, c in s] for s in run["snaps"]]
+              == [[c for _, c in s] for s in passive["snaps"]],
+              f"3o: fetches {run['fetches']} with lineage, {passive['fetches']} without")
+    copies = {k: r["trace"]["copies"]["DtoH"] for k, r in (("passive", passive),
+                                                          ("lineage", frozen))}
+    check(copies["lineage"] <= copies["passive"],
+          f"3o: the lineage run copied device→host more often {copies}")
+    sig = frozen["sig"]
+    check(sig["spans"] and sig["fresh"]["1s.partial_samples"] >= 1
+          and sig["fresh"]["1s.visibility_samples"] == len(passive["docs"]),
+          "3o: the frozen run's lineage is incomplete")
+    # card = CPU on the lineage records at 2^14-row batches (the 4b cut)
+    small = [SyntheticFlowGen(num_tuples=10_000, seed=0).flow_batch(SMALL_BATCH, T0 + dt)
+             for dt in SELFOBS_SECONDS]
+    twin_card, twin_cpu = (lineage_run(d, small, sk_cfg, lineage=True,
+                                       clock=FrozenClock(LINEAGE_CLOCK0))
+                           for d in (dev, torch.device("cpu")))
+    check(same_docs(twin_card["docs"], twin_cpu["docs"])
+          and twin_card["sig"] == twin_cpu["sig"],
+          "3o: lineage records (spans, trees, lanes) differ card vs CPU")
+    hop = wall["hop_timer"]
+
+    # (b) card = CPU on the same frames and clock
+    cpu_push = push_run(torch.device("cpu"), groups)
+    for key in ("windows", "batches", "sig", "states", "pump_batches"):
+        check(card_push[key] == cpu_push[key], f"3o: push plane {key} differ card vs CPU")
+    for key in ("sql", "promql", "fired"):
+        check(json.dumps(card_push[key], sort_keys=True, default=str)
+              == json.dumps(cpu_push[key], sort_keys=True, default=str),
+              f"3o: {key} results differ card vs CPU")
+    fired = [(f["rule"], f["state"]) for f in card_push["fired"]]
+    check(("visibility_lag_high", "firing") in fired and ("bytes_high", "firing") in fired,
+          f"3o: the alert rules did not fire {fired}")
+    events_per_pump = [sum(b) for b in card_push["pump_batches"]]
+    summary = {
+        "gpu": device_line(),
+        "a_full_width": {
+            "batches": len(SELFOBS_SECONDS), "rows_per_batch": BATCH,
+            "windows": len(passive["docs"]), "fetches": passive["fetches"],
+            "dtoh_copies": copies, "spans": len(sig["spans"]),
+            "hops_recorded": sig["counters"]["hops_recorded"],
+            "wall_s": {"passive": passive["wall_s"], "frozen": frozen["wall_s"],
+                       "wall_clock": wall["wall_s"]},
+            "lag_quantiles_wall_clock": lag_quantiles(wall["fresh_hist"]),
+            "tracker_calls": hop["calls"], "tracker_host_s": hop["s"],
+            "host_us_per_hop": 1e6 * hop["s"] / max(wall["sig"]["counters"]["hops_recorded"], 1),
+            "card_vs_cpu_small": {"rows_per_batch": SMALL_BATCH,
+                                  "spans": len(twin_card["sig"]["spans"]),
+                                  "windows": len(twin_card["docs"])},
+        },
+        "b_push_plane": {
+            "docs": card_push["docs"], "windows": len(card_push["windows"]),
+            "pumps": len(groups), "pumps_with_windows": sum(1 for n in events_per_pump if n),
+            "events_per_pump": events_per_pump,
+            "events_published": card_push["feeder"]["events_published"],
+            "expected_events": card_push["expected_events"],
+            "bus_batches": len(card_push["batches"]),
+            "subscription_deliveries": {"sql": len(card_push["sql"]),
+                                        "promql": len(card_push["promql"])},
+            "alert_transitions": fired,
+            "subscription_eval_ms": card_push["subscription_eval_ms"],
+            "alert_eval_ms": card_push["alert_eval_ms"],
+            "segreduce_gather_launches": card_push["segreduce_gather"],
+            "wall_s": {"card": card_push["wall_s"], "cpu": cpu_push["wall_s"]},
+        },
+        "launches": launches,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return launches, summary
+
+
 def load_other_port(path: str):
     """The ops.segreduce and ops.sketch_fused modules of another checkout
     of this repo (for example the parent commit, unpacked with git
@@ -4084,6 +4543,14 @@ def main() -> int:
     emit({"phase": "selfobs", "gpu": gpu, **selfobs_summary})
     torch.cuda.empty_cache()
 
+    # 3o. window lineage on 3c's slab pipeline at full width (fetch parity
+    # with the passive run, card = CPU on the records), and the doc feeder
+    # with the push plane: events, standing queries, alert rules
+    # (lineage_phase)
+    main_lineage, lineage_summary = lineage_phase(dev, sk_cfg)
+    emit({"phase": "lineage", **lineage_summary})
+    torch.cuda.empty_cache()
+
     # 3g. the counter ring and async drain at full width: the 3c stream,
     # 3 batches a second for T0 … T0+5, staged on the card once and
     # ingested by three pipelines in turn
@@ -4255,7 +4722,7 @@ def main() -> int:
             "launches_sharded_checkpoint": main_sharded_ckpt[k],
             "launches_sharded_cascade": main_sharded_casc[k],
             "launches_server": main_server[k], "launches_agent": main_agent[k],
-            "launches_selfobs": main_selfobs[k],
+            "launches_selfobs": main_selfobs[k], "launches_lineage": main_lineage[k],
         })
     # the server path's downsample group-by (fused gather only)
     check(kernels[0]["name"] == "segreduce_gather", "kernels line order")
@@ -4278,6 +4745,7 @@ def main() -> int:
         "launches_sharded_cascade": main_sharded_casc[sk_name],
         "launches_server": main_server[sk_name], "launches_agent": main_agent[sk_name],
         "launches_selfobs": main_selfobs[sk_name],
+        "launches_lineage": main_lineage[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",

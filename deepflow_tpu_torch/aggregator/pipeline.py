@@ -42,7 +42,11 @@ argument shapes, host wall and the logical sorts the step runs.
 census rows; `telemetry()` adds the counters and the span summary;
 `close()` deregisters everything eagerly.
 
-Not ported yet: lineage (`attach_lineage`).
+Window lineage: `attach_lineage(tracker)` wires a
+tracing/lineage.LineageTracker through the pipeline and its manager:
+`stage()` takes the batch's host event-time bounds before the upload and
+stamps the upload hop, and `ingest_staged` binds them to the dispatch.
+Host wall stamps only — no device fetch.
 """
 
 from __future__ import annotations
@@ -253,6 +257,11 @@ class StagedBatch:
     meters: torch.Tensor  # [B, M] f32 (device)
     valid: torch.Tensor  # [B] bool (device)
     padded_rows: int  # B — the bucket this batch padded to
+    # lineage plane: the batch's host-side event-time bounds (valid rows
+    # only), taken in stage() BEFORE the upload — t_max < t_min means
+    # "not computed" (no lineage attached)
+    t_min: int = 0
+    t_max: int = -1
 
 
 class RollupPipeline:
@@ -299,6 +308,18 @@ class RollupPipeline:
         self._census = census_mod.default_census
         self._census_service = (f"{type(self).__name__}:{config.window.interval}s"
                                 f"#{next(_PIPELINE_SEQ)}")
+        # window lineage plane: opt-in via attach_lineage
+        self._lineage = None
+
+    def attach_lineage(self, tracker) -> None:
+        """Wire a tracing/lineage.LineageTracker through this pipeline:
+        stage() stamps the upload hop and takes the batch's host
+        event-time bounds, ingest_staged binds them to the dispatch, and
+        the wrapped WindowManager records advance/flush/tier/snapshot
+        hops and the freshness lags. Host wall stamps only — zero new
+        device fetches."""
+        self._lineage = tracker
+        self.wm.attach_lineage(tracker)
 
     def _step(self, acc, offset: int, start_window, stash_valid, stash_evict,
               feeder_shed: int, fold_rows, casc_lanes, snap_lanes, sk, tags: dict, meters,
@@ -357,12 +378,23 @@ class RollupPipeline:
         batch = batch.pad_to(self._pad_target(batch.size))
         if not np.any(batch.valid):
             return None
+        lin = self._lineage
+        t_min, t_max, s0 = 0, -1, 0.0
+        if lin is not None:
+            # host event-time bounds BEFORE the upload (numpy — free); the
+            # dispatch binds them to the lineage window span
+            ts = np.asarray(batch.tags["timestamp"])[batch.valid]
+            if ts.size:
+                t_min, t_max = int(ts.min()), int(ts.max())
+            s0 = lin.clock()
         tags, meters, valid = upload_flow_batch(batch, self.device)
         self.wm.bytes_uploaded += (
             4 * len(tags) * batch.size + meters.nbytes + valid.nbytes
         )
+        if lin is not None:
+            lin.note_stage(s0)
         return StagedBatch(tags=tags, meters=meters, valid=valid,
-                           padded_rows=batch.size)
+                           padded_rows=batch.size, t_min=t_min, t_max=t_max)
 
     def ingest(self, batch: FlowBatch, feeder_shed: int = 0) -> list[DocBatch]:
         """Feed one decoded flow batch; returns any closed windows."""
@@ -399,8 +431,13 @@ class RollupPipeline:
             self._census.note_outputs(*key, out)
             return out
 
+        window_span = None
+        if self._lineage is not None and staged.t_max >= staged.t_min:
+            iv = self.config.window.interval
+            window_span = (staged.t_min // iv, staged.t_max // iv)
         t0 = time.perf_counter()
-        flushed = self.wm.ingest_step(dispatch, rows, ring_rows=max_rows)
+        flushed = self.wm.ingest_step(dispatch, rows, ring_rows=max_rows,
+                                      window_span=window_span)
         if first:
             # the first dispatch's host wall is the bucket's warmup tax
             # (no device sync: the counter-block fetch inside already

@@ -62,7 +62,15 @@ a device sync — and `device_planes()`, the Profilable face the manager
 registers on the process-wide device-memory ledger at construction
 (weakly; `close()` deregisters eagerly).
 
-Absent: lineage.
+Window lineage (`attach_lineage(tracing.lineage.LineageTracker)`): every
+dispatch pushes a host wall stamp and binds the batch's window span,
+taken from host timestamps only (a tensor input gives no span: reading
+one would be a device fetch); every replayed counter block pops one
+stamp, whether or not it advances, so the FIFO pairs across the counter
+ring, the async drain and `flush_all`; the advance, flush, tier-close
+and snapshot seams record their hops. No seam reads a tensor, so the
+fetch count is the passive manager's. `make_feeder` puts the manager
+behind a feeder runtime for pb Documents (feeder.WindowManagerFeedSink).
 """
 
 from __future__ import annotations
@@ -77,7 +85,7 @@ from .. import chaos
 from ..datamodel.schema import FLOW_METER, TAG_SCHEMA, MeterSchema, TagSchema
 from ..device import resolve_device
 from ..ops.hashing import fingerprint64_words
-from ..ops.u32 import MASK, U32_MAX, add, mul, shl, to_i32_bits
+from ..ops.u32 import MASK, U32_MAX, add, from_numpy_u32, mul, shl, to_i32_bits
 from ..utils.retry import RetryPolicy, decorrelated_rng, is_dispatch_transient, retry_call
 from ..utils.spans import (
     SPAN_FLUSH_DRAIN,
@@ -616,6 +624,10 @@ class WindowManager:
         self.dispatch_retries = 0
         self.fetch_retries = 0
         self.tracer = SpanTracer()
+        # window lineage plane: optional per-window hop recorder
+        # (tracing/lineage.LineageTracker). Every hop is a host wall
+        # stamp — attaching it never adds a device fetch.
+        self.lineage = None
         # the device profiling plane: every tensor this manager owns is
         # enumerable via device_planes(), and the manager registers WEAKLY
         # on the process-wide ledger (GC removes it, close() eagerly)
@@ -709,6 +721,9 @@ class WindowManager:
                     num_tags=self.tag_schema.num_fields,
                     num_meters=self.meter_schema.num_fields))
         flushed.sort(key=lambda f: f.window_idx)
+        lin = self.lineage
+        if lin is not None and flushed:
+            lin.note_flush_windows([(f.window_idx, f.count) for f in flushed])
         if self.cascade is not None:
             # this drain's closed child blocks feed the parent merges
             # BEFORE the tier windows are built, so a parent closing in
@@ -721,6 +736,9 @@ class WindowManager:
                 t_rows = flat[o:o + t * row_cols].reshape(t, row_cols)
                 o += t * row_cols
                 tier_wins += self.cascade.take_tier_windows(tf, t_rows, t)
+            if lin is not None and tier_wins:
+                lin.note_tier_windows([(f.interval, f.window_idx, f.count)
+                                       for f in tier_wins])
             self.tier_windows_dropped += hold_blocks(self.tier_flushed, tier_wins,
                                                      self.max_held_tier_windows)
         return flushed
@@ -781,6 +799,27 @@ class WindowManager:
     def window_of(self, timestamp):
         return timestamp // self.config.interval
 
+    def attach_lineage(self, tracker) -> None:
+        """Wire a tracing/lineage.LineageTracker: dispatch stamps,
+        advance/flush/tier-close hops and the freshness lags all record
+        from this manager's existing host seams."""
+        self.lineage = tracker
+
+    def _lineage_span_of(self, timestamp, valid) -> tuple[int, int] | None:
+        """Host-side window span of one batch — ONLY when the arrays are
+        host numpy. A tensor on any device gives None: reading a CUDA
+        tensor would be the fetch the lineage plane must never add, and
+        a CPU tensor must not get a span its CUDA twin lacks."""
+        if not isinstance(timestamp, np.ndarray):
+            return None
+        v = valid if isinstance(valid, np.ndarray) else None
+        ts = (timestamp[v.astype(bool)]
+              if (v is not None and v.shape == timestamp.shape) else timestamp)
+        if ts.size == 0:
+            return None
+        iv = self.config.interval
+        return int(ts.min()) // iv, int(ts.max()) // iv
+
     # -- stats processing (the ONE per-batch host sync) ------------------
     def _process_stats(self, stats_dev: torch.Tensor) -> None:
         with self.tracer.span(SPAN_STATS_FETCH):
@@ -815,6 +854,11 @@ class WindowManager:
     def _process_block(self, vec: list[int]) -> None:
         """One batch's counter block → host counters, open-span advance
         and the (dispatched, not yet fetched) range flush."""
+        lin = self.lineage
+        # one block = one dispatch: pop its wall stamp FIRST (whether or
+        # not this block advances) so the FIFO pairing stays aligned
+        # across counter-ring drains and async settles
+        lin_stamp = lin.pop_dispatch_stamp() if lin is not None else None
         if len(vec) != CB_LEN or vec[CB_VERSION] != COUNTER_BLOCK_VERSION:
             raise ValueError(
                 f"counter block {vec[:1]}… of {len(vec)} lanes is not the "
@@ -872,6 +916,8 @@ class WindowManager:
                 self._pending_flush.append(
                     self._make_flush_entry(packed, total, self.start_window, new_start)
                 )
+                if lin is not None:
+                    lin.note_advance(self.start_window, new_start, lin_stamp)
             self.start_window = new_start
             self.n_advances += 1
 
@@ -929,6 +975,10 @@ class WindowManager:
             snap = self._read_open_snapshot(now)
         self.snapshot_seq += 1
         snap.seq = self.snapshot_seq
+        if self.lineage is not None and snap.windows:
+            # a live read served these still-open windows: the distinct
+            # partial lane (never confusable with post-flush visibility)
+            self.lineage.note_snapshot([(w.window_idx, w.count) for w in snap.windows])
         self._snap_lanes_dev = torch.tensor(
             [self.snapshot_reads & MASK, self.snapshot_bytes & MASK], dtype=torch.int64,
             device=self.device)
@@ -976,10 +1026,21 @@ class WindowManager:
     # -- ingest ----------------------------------------------------------
     def ingest(self, timestamp, key_hi, key_lo, tags, meters, valid,
                feeder_shed: int = 0) -> list[FlushedWindow]:
-        """Merge a raw doc batch (device tensors: u32 lanes, [T, N] tags,
-        [M, N] meters, bool valid); advance and flush closed windows (with
+        """Merge a raw doc batch — tensors on the manager's device (u32
+        lanes, [T, N] tags, [M, N] meters, bool valid) or host numpy
+        arrays of the same shapes (uint32 / float32 / bool), which are
+        uploaded here; advance and flush closed windows (with
         async_drain those the previous batch closed; with a counter ring
-        those its drains close)."""
+        those its drains close). With lineage attached, a host batch's
+        own timestamps give its window span."""
+        window_span = (self._lineage_span_of(timestamp, valid)
+                       if self.lineage is not None else None)
+        if isinstance(timestamp, np.ndarray):
+            dev = self.device
+            timestamp, key_hi, key_lo, tags = (
+                from_numpy_u32(x, dev) for x in (timestamp, key_hi, key_lo, tags))
+            meters = torch.from_numpy(np.require(meters, np.float32, ["C", "W"])).to(dev)
+            valid = torch.from_numpy(np.asarray(valid, bool)).to(dev)
         interval = self.config.interval
 
         def dispatch(acc, offset, start_window):
@@ -999,10 +1060,10 @@ class WindowManager:
                 interval=interval,
             )
 
-        return self.ingest_step(dispatch, int(timestamp.shape[0]))
+        return self.ingest_step(dispatch, int(timestamp.shape[0]), window_span=window_span)
 
-    def ingest_step(self, dispatch, rows: int,
-                    ring_rows: int | None = None) -> list[FlushedWindow]:
+    def ingest_step(self, dispatch, rows: int, ring_rows: int | None = None,
+                    window_span: tuple[int, int] | None = None) -> list[FlushedWindow]:
         """Window protocol around a caller-supplied append step.
 
         `dispatch(acc, offset, start_window)` returns (new_acc, counter
@@ -1011,7 +1072,9 @@ class WindowManager:
         sizes the ring for a larger coming batch. `start_window` is a
         host int, or with stats_ring > 1 the device gate (a 0-dim tensor
         the step must not read back). An empty batch only drains the
-        flushes already dispatched."""
+        flushes already dispatched. `window_span` (lo, hi — computed on
+        the host from the batch's own timestamps) binds this dispatch to
+        the lineage plane when one is attached."""
         if rows == 0:
             return self._settle_ready()
         ready, self._pending_flush = self._pending_flush, []
@@ -1052,6 +1115,8 @@ class WindowManager:
         def on_retry(_attempt, _exc):
             self.dispatch_retries += 1
 
+        lin = self.lineage
+        d0 = lin.clock() if lin is not None else 0.0
         with self.tracer.span(SPAN_INGEST_DISPATCH):
             out = retry_call(dispatch_once, self.retry_policy, on_retry=on_retry,
                              rng=self._retry_rng, classify=is_dispatch_transient)
@@ -1059,6 +1124,11 @@ class WindowManager:
             self.acc, stats_dev, self.sk = out
         else:
             self.acc, stats_dev = out
+        if lin is not None:
+            # bind the batch's window span + push the wall stamp the
+            # counter-block replay pops: device-side hop times are
+            # derived from this pairing, never fetched
+            lin.note_dispatch(window_span, d0)
         self.fill += rows
         if k > 1:
             self._cb_ring, self._sw_state = _stats_ring_push(
@@ -1153,6 +1223,15 @@ class WindowManager:
             planes["cascade"] = [self.cascade.tiers, self.cascade.accs, self.cascade.fills,
                                  self.cascade.lanes_dev]
         return planes
+
+    def make_feeder(self, queues, bucket_sizes, config=None, **kw):
+        """Wire this manager behind a feeder runtime: METRICS pb frames
+        from `queues` decode via ingest/codec.py and coalesce into
+        bucket-shaped doc appends (feeder/runtime.WindowManagerFeedSink)."""
+        from ..feeder import FeederConfig, FeederRuntime, WindowManagerFeedSink
+
+        return FeederRuntime(queues, WindowManagerFeedSink(self, bucket_sizes),
+                             config or FeederConfig(), **kw)
 
     def close(self) -> None:
         """Eager teardown of the ledger registration (the weakref gets

@@ -1,6 +1,6 @@
 """Feeder runtime — multi-queue fan-in, shape-bucketed coalescing,
 deterministic shedding and the frame journal between the overwrite
-queues and a port pipeline or sharded window manager (port of
+queues and a port pipeline, window manager or sharded window manager (port of
 deepflow_tpu/feeder; see runtime.py)."""
 
 from .flowframe import (
@@ -11,15 +11,18 @@ from .flowframe import (
 )
 from .journal import FrameJournal, read_journal
 from .runtime import (
+    DocChunk,
     FeederConfig,
     FeederRuntime,
     FlowChunk,
     FrameCodecBase,
     PipelineFeedSink,
     ShardedFeedSink,
+    WindowManagerFeedSink,
 )
 
 __all__ = [
+    "DocChunk",
     "FeederConfig",
     "FeederRuntime",
     "FlowChunk",
@@ -27,6 +30,7 @@ __all__ = [
     "FrameJournal",
     "PipelineFeedSink",
     "ShardedFeedSink",
+    "WindowManagerFeedSink",
     "decode_flowframe_body",
     "encode_flowbatch_body",
     "encode_flowbatch_frames",

@@ -42,17 +42,30 @@ is retried, contained, or counted:
 
 `PipelineFeedSink` feeds flow records to a RollupPipeline through
 `pipeline.stage()` / `pipeline.ingest_staged()`; `ShardedFeedSink` to a
-parallel/sharded.ShardedWindowManager through `swm.ingest()`.
+parallel/sharded.ShardedWindowManager through `swm.ingest()`;
+`WindowManagerFeedSink` pb Documents (METRICS frames, ingest/codec.py)
+to the doc-level WindowManager append, with host fingerprints bit-equal
+to the device's.
+
+Push events: with `event_bus=` (querier/events.QueryEventBus), each
+pump publishes the windows it flushed as ONE WindowClosed/TierClosed
+batch after its last emit (and a SnapshotAdvanced after a scheduled
+snapshot), attributed to `FeederConfig.event_db` / `event_table`. A
+failed publish is contained (logged at debug level) and never stalls
+the drain; `events_published` counts what reached the bus.
+
+Window lineage: with `lineage=` (tracing/lineage.LineageTracker), the
+runtime owns the hops before windows are known — pump start, the
+receiver-admission pairing and journal appends park in the tracker's
+pending context and bind to window ids at the sink's dispatch. Every
+admitted frame consumes exactly one admission stamp: a bad, empty or
+shed frame drops its stamp, and each pump drops the stamps of frames
+the overwrite queues replaced.
 
 Self-telemetry: the runtime registers itself (`tpu_feeder`) and its
 tracer (`tpu_feeder_spans`) on the default StatsCollector, and
 `PipelineFeedSink` registers its double-buffered staged upload on the
 device-memory ledger (plane `staged`).
-
-Not ported with it: `WindowManagerFeedSink` and `DocChunk` (the pb-Document path through
-`ingest/codec.py`), and the push-event bus and lineage hooks of
-`FeederRuntime` (`event_bus=`, `lineage=`, and `FeederConfig.event_db` /
-`event_table`).
 """
 
 from __future__ import annotations
@@ -62,6 +75,8 @@ import logging
 import threading
 from collections import deque
 from pathlib import Path
+
+import numpy as np
 
 from .. import chaos
 from ..datamodel.batch import FlowBatch
@@ -91,6 +106,24 @@ class FlowChunk:
 
     def split(self, n: int) -> tuple["FlowChunk", "FlowChunk"]:
         return FlowChunk(self.fb.slice(0, n)), FlowChunk(self.fb.slice(n, self.fb.size))
+
+
+@dataclasses.dataclass
+class DocChunk:
+    """Decoded Documents (post-fanout) for the doc-level append path."""
+
+    timestamp: np.ndarray  # [n] u32
+    tags: np.ndarray  # [n, T] u32 (TAG_SCHEMA order)
+    meters: np.ndarray  # [n, M] f32
+
+    @property
+    def rows(self) -> int:
+        return int(self.timestamp.shape[0])
+
+    def split(self, n: int) -> tuple["DocChunk", "DocChunk"]:
+        a = DocChunk(self.timestamp[:n], self.tags[:n], self.meters[:n])
+        b = DocChunk(self.timestamp[n:], self.tags[n:], self.meters[n:])
+        return a, b
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +305,83 @@ class ShardedFeedSink(_FlowFrameCodec):
         return self.swm.snapshot_open()
 
 
+def doc_key_fingerprint_np(tags: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host (hi, lo) of [n, T] TAG_SCHEMA doc tags: the DOC_KEY_PACK
+    words (built on CPU tensors by the device's own packer) folded by
+    `fingerprint64_np` — bit-equal to the device fingerprint of the same
+    rows (aggregator/pipeline._doc_fingerprint), so feeder-fed rows and
+    device-fingerprinted rows of one logical key share one group."""
+    import torch
+
+    from ..datamodel.code import DOC_KEY_PACK, pack_tag_words
+    from ..datamodel.schema import TAG_SCHEMA
+    from ..ops.hashing import fingerprint64_np
+
+    cols = {f: torch.from_numpy(tags[:, TAG_SCHEMA.index(f)].astype(np.int64))
+            for f in DOC_KEY_PACK.field_names()}
+    words = torch.stack(pack_tag_words(cols, DOC_KEY_PACK), dim=1)
+    return fingerprint64_np(words.numpy().astype(np.uint32))
+
+
+class WindowManagerFeedSink(FrameCodecBase):
+    """pb Documents (METRICS lane, ingest/codec.py) → the doc-level
+    WindowManager append. Keys are the packed-word fingerprints computed
+    on the host with the SAME plan the device uses (DOC_KEY_PACK +
+    murmur, `doc_key_fingerprint_np`), so feeder-fed rows merge with
+    device-fingerprinted rows for the same logical key. The batch goes
+    to `wm.ingest` as host arrays: the manager uploads them, and with
+    lineage attached takes the batch's window span from them."""
+
+    def __init__(self, wm, bucket_sizes: tuple[int, ...], *, meter_id=None, decoder=None):
+        from ..datamodel.code import MeterId
+        from ..ingest.codec import DocumentDecoder
+
+        super().__init__()
+        self.wm = wm
+        self.bucket_sizes = tuple(bucket_sizes)
+        self.meter_id = int(MeterId.FLOW if meter_id is None else meter_id)
+        self.decoder = decoder if decoder is not None else DocumentDecoder()
+        self.other_meter_rows = 0  # decoded docs of non-target meter types
+
+    def count_records(self, raw: bytes) -> int:
+        return len(split_message_spans(raw[HEADER_LEN:]))
+
+    def _decode_frame(self, raw: bytes) -> DocChunk | None:
+        body = raw[HEADER_LEN:]
+        spans = split_message_spans(body)
+        batches = self.decoder.decode_parts([(body, spans)])
+        chunk = None
+        for meter_id, db in batches.items():
+            if meter_id != self.meter_id:
+                self.other_meter_rows += db.tags.shape[0]
+                continue
+            chunk = DocChunk(db.timestamp, db.tags, db.meters)
+        return chunk
+
+    def emit(self, chunks: list[DocChunk], rows: int, bucket: int, shed: int) -> list:
+        from ..datamodel.schema import TAG_SCHEMA
+
+        ts = np.zeros(bucket, dtype=np.uint32)
+        tags = np.zeros((bucket, TAG_SCHEMA.num_fields), dtype=np.uint32)
+        meters = np.zeros((bucket, self.wm.meter_schema.num_fields), dtype=np.float32)
+        valid = np.zeros(bucket, dtype=bool)
+        off = 0
+        for c in chunks:
+            n = c.rows
+            ts[off:off + n] = c.timestamp
+            tags[off:off + n] = c.tags
+            meters[off:off + n] = c.meters
+            valid[off:off + n] = True
+            off += n
+        assert off == rows
+        hi, lo = doc_key_fingerprint_np(tags)
+        return self.wm.ingest(ts, hi, lo, np.ascontiguousarray(tags.T),
+                              np.ascontiguousarray(meters.T), valid, feeder_shed=shed)
+
+    def flush(self) -> list:
+        return []
+
+
 # ---------------------------------------------------------------------------
 # the runtime
 
@@ -303,6 +413,13 @@ class FeederConfig:
     # pump's last emit (the read never interleaves into a pump's emit
     # sequence). The sink must expose `snapshot()`. 0 = off.
     snapshot_interval_pumps: int = 0
+    # push query plane: the (db, table) the feeder's flushed outputs are
+    # attributed to when an event_bus is attached — the WindowClosed /
+    # TierClosed events the pump publishes after its last emit carry
+    # these, so standing queries over the table re-evaluate exactly when
+    # their data moved
+    event_db: str = "deepflow_system"
+    event_table: str = "deepflow_system"
 
 
 class FeederRuntime:
@@ -311,7 +428,8 @@ class FeederRuntime:
     `serve()` polling thread."""
 
     def __init__(self, queues: list, sink, config: FeederConfig = FeederConfig(), *,
-                 name: str = "feeder", tracer: SpanTracer | None = None, journal=None):
+                 name: str = "feeder", tracer: SpanTracer | None = None, journal=None,
+                 event_bus=None, lineage=None):
         if not queues:
             raise ValueError("need at least one queue")
         if config.weights is not None and len(config.weights) != len(queues):
@@ -326,6 +444,17 @@ class FeederRuntime:
         self.tracer = tracer if tracer is not None else SpanTracer(
             service="deepflow_tpu.feeder")
         self._journal = journal
+        # push query plane: flushed outputs become WindowClosed /
+        # TierClosed events AFTER the pump's last emit
+        self._event_bus = event_bus
+        # window lineage plane: the pre-window hops (pump start, the
+        # receiver-admission pairing, journal appends) park in the
+        # tracker's pending context and bind at the sink's dispatch.
+        # Frames the OverwriteQueue overwrote never reach the feeder, so
+        # each pump drops stamps by the queues' overwritten-counter delta
+        # (baseline taken here — pre-attach drops don't count).
+        self._lineage = lineage
+        self._overwritten_base = sum(int(getattr(q, "overwritten", 0)) for q in queues)
         self._weights = config.weights or (1,) * len(queues)
         self._pressure = [False] * len(queues)
         self._chunks: deque = deque()
@@ -372,6 +501,8 @@ class FeederRuntime:
             # live read scheduling
             "snapshots_taken": 0,
             "snapshot_errors": 0,
+            # push query plane
+            "events_published": 0,
         }
         self._pump_count = 0
         self.last_snapshot = None  # most recent scheduled OpenSnapshot
@@ -446,9 +577,18 @@ class FeederRuntime:
         else:
             self._probe_now = False
 
+    def _drop_admit_stamp(self) -> None:
+        """One admitted frame contributed no rows (bad/empty/shed):
+        consume its receiver admission stamp WITHOUT folding it into the
+        lineage context, or the FIFO pairing drifts stale (every admitted
+        frame must pop exactly one stamp)."""
+        if self._lineage is not None:
+            self._lineage.drop_stamps(1)
+
     def _shed_frame(self, raw: bytes) -> None:
         """Degraded-mode shed: whole frames, counted via header peek."""
         self._count("shed_frames")
+        self._drop_admit_stamp()
         n = self._count_records_safe(raw)
         self._count("shed_records", n)
         self._count("degraded_shed_records", n)
@@ -480,6 +620,7 @@ class FeederRuntime:
             cut = max(len(drained) - budget, 0)
             for raw in drained[:cut]:
                 self._count("shed_frames")
+                self._drop_admit_stamp()
                 n = self._count_records_safe(raw)
                 self._count("shed_records", n)
                 with self._lock:
@@ -568,13 +709,20 @@ class FeederRuntime:
             # sinks quarantine internally (FrameCodecBase); this guard
             # covers foreign sink implementations only
             self._count("bad_frames")
+            self._drop_admit_stamp()
             return
         if int(getattr(self.sink, "decode_errors", 0)) > errs0:
             self._count("bad_frames")  # quarantined by the codec
+            self._drop_admit_stamp()
             return
         self._count("frames_in")
         if chunk is None or chunk.rows == 0:
+            self._drop_admit_stamp()
             return
+        if self._lineage is not None:
+            # pair this admitted frame with its receiver admission stamp
+            # (FIFO) — opens the receiver.admit hop in the pending context
+            self._lineage.note_frames(1)
         self._count("records_in", chunk.rows)
         self._admit(chunk, out)
 
@@ -590,6 +738,15 @@ class FeederRuntime:
 
     def _pump_locked(self) -> list:
         out: list = []
+        if self._lineage is not None:
+            self._lineage.begin_pump()
+            # frames lost to queue OVERWRITE never reach _process_frame —
+            # consume their admission stamps here or the FIFO pairing
+            # drifts stale under sustained backpressure
+            ow = sum(int(getattr(q, "overwritten", 0)) for q in self.queues)
+            if ow > self._overwritten_base:
+                self._lineage.drop_stamps(ow - self._overwritten_base)
+            self._overwritten_base = ow
         self._probe_tick()
         dispatch0 = self.counters["batches_out"] + self.counters["emit_failures"]
         nq = len(self.queues)
@@ -611,8 +768,11 @@ class FeederRuntime:
                 # device: a kill anywhere downstream (dispatch, fetch,
                 # flush) then loses nothing the journal can't replay
                 if self._journal is not None and not shedding:
+                    j0 = self._lineage.clock() if self._lineage is not None else 0.0
                     for raw in admit:
                         self._journal.append(raw)
+                    if self._lineage is not None and admit:
+                        self._lineage.note_journal(j0)
                 for raw in admit:
                     if shedding:
                         self._shed_frame(raw)
@@ -645,7 +805,45 @@ class FeederRuntime:
                         self._snapshot_err_logged = True
                         _log.exception("feeder %s: open-window snapshot failed — live "
                                        "reads degrade to flushed-only", self.name)
+                else:
+                    self._publish_snapshot_event()
+        self._publish_events(out)
         return out
+
+    # -- push events -------------------------------------------------------
+    def _publish_events(self, out: list) -> None:
+        """Flushed outputs → one WindowClosed/TierClosed batch on the
+        attached bus. One publish per pump, so K windows closed by one
+        drain reach every standing query as ONE delivery. Contained: the
+        event plane never stalls or fails the drain (a failure is logged
+        at debug level and leaves `events_published` short)."""
+        if self._event_bus is None or not out:
+            return
+        try:
+            from ..querier.events import docbatch_events
+
+            events = docbatch_events(out, db=self.config.event_db,
+                                     table=self.config.event_table)
+            if events:
+                n = self._event_bus.publish(events)
+                self._count("events_published", n)
+        except Exception:
+            _log.debug("feeder %s: event publish failed (contained)", self.name,
+                       exc_info=True)
+
+    def _publish_snapshot_event(self) -> None:
+        if self._event_bus is None or self.last_snapshot is None:
+            return
+        try:
+            from ..querier.events import SnapshotAdvanced
+
+            n = self._event_bus.publish(SnapshotAdvanced(
+                self.config.event_db, self.config.event_table,
+                int(getattr(self.last_snapshot, "seq", 0))))
+            self._count("events_published", n)
+        except Exception:
+            _log.debug("feeder %s: snapshot event publish failed (contained)",
+                       self.name, exc_info=True)
 
     def flush(self) -> list:
         """Emit every pending record (tail bucket) and push anything the
@@ -666,6 +864,7 @@ class FeederRuntime:
                 with self._lock:
                     self._shed_pending += lost
                 self._enter_degraded()
+            self._publish_events(out)
             return out
 
     # -- journal recovery ------------------------------------------------
@@ -725,6 +924,7 @@ class FeederRuntime:
                 return out
             if res:
                 out.extend(res)
+                self._publish_events(res)  # barrier-flushed windows push too
             if self._journal is not None:
                 self._journal.rotate()
             self.last_checkpoint_ok = True

@@ -22,9 +22,11 @@ Influx line serialization follows the line-protocol typing rules:
 integer fields keep their `{v}i` suffix, tag values escape
 backslash/comma/equals/space, and non-finite floats are skipped.
 
-The sinks' `bus=` (push-event batches) and `lineage=` (window lineage
-hops) arguments need the push plane and the lineage tracker, which the
-port does not have yet: passing either raises NotImplementedError.
+The closed-window sinks take `bus=` (a querier/events.QueryEventBus: one
+WindowClosed/TierClosed batch per sink call, coalesced with the insert's
+own StoreMutation into one dispatch) and `lineage=` (a
+tracing/lineage.LineageTracker: each inserted window's store.insert hop
+and visibility lag, taken AFTER the insert).
 """
 
 from __future__ import annotations
@@ -192,17 +194,6 @@ SKETCH_METRIC_QUANTILE = "deepflow_sketch_rtt_quantile"
 SKETCH_METRIC_TOPK = "deepflow_sketch_top_bytes"
 
 
-def _not_ported(what: str, value) -> None:
-    """Refuse a `bus=` / `lineage=` argument until its plane is ported."""
-    if value is not None:
-        raise NotImplementedError(
-            f"{what}= needs "
-            + ("the push-event plane (querier/events.py)" if what == "bus"
-               else "the window lineage tracker (tracing/lineage.py)")
-            + ", which is not ported yet"
-        )
-
-
 def sketch_block_rows(
     block, interval: int, *, quantiles=(0.5, 0.95, 0.99), topk: int = 16
 ) -> list[tuple[int, str, dict, float]]:
@@ -269,18 +260,35 @@ def sketch_rows_to_columns(rows) -> dict[str, np.ndarray]:
 def sketch_system_sink(store, interval: int = 1, *, bus=None, **row_kw):
     """→ a callable(blocks) writing closed-window sketch answers into
     deepflow_system — wire a pipeline's `pop_closed_sketches()` (or a
-    ShardedWindowManager's) into it after every ingest/drain. `bus`
-    (publishing the close events) is not ported: non-None raises."""
-    _not_ported("bus", bus)
+    ShardedWindowManager's) into it after every ingest/drain. With
+    `bus` set, one WindowClosed/TierClosed batch publishes AFTER the
+    insert, so heavy-hitter alert rules over the sketch plane's `topk()`
+    lane re-evaluate the moment a window's sketch answers land."""
     ensure_system_table(store)
 
     def sink(blocks) -> None:
+        import contextlib
+
         rows = []
+        events = []
         for b in blocks:
             rows.extend(sketch_block_rows(b, interval, **row_kw))
-        if rows:
-            store.insert(DEEPFLOW_SYSTEM_DB, DEEPFLOW_SYSTEM_TABLE,
-                         sketch_rows_to_columns(rows))
+            if bus is not None:
+                from ..querier.events import TierClosed, WindowClosed
+
+                t, i = b.window * interval, int(interval)
+                events.append(
+                    WindowClosed(DEEPFLOW_SYSTEM_DB, DEEPFLOW_SYSTEM_TABLE, t, i)
+                    if i <= 1 else
+                    TierClosed(DEEPFLOW_SYSTEM_DB, DEEPFLOW_SYSTEM_TABLE, t, i))
+        # one dispatch per sink call: the insert's StoreMutation joins the
+        # data-timed close events in a single batch (bus.batch)
+        with (bus.batch() if bus is not None else contextlib.nullcontext()):
+            if rows:
+                store.insert(DEEPFLOW_SYSTEM_DB, DEEPFLOW_SYSTEM_TABLE,
+                             sketch_rows_to_columns(rows))
+            if events and bus is not None:
+                bus.publish(events)
 
     return sink
 
@@ -426,18 +434,40 @@ def flow_window_sink(store, *, bus=None, lineage=None, **row_kw):
     """→ callable(windows) writing CLOSED windows' rows through the
     same `flow_window_rows` builder the live source uses — window
     close = insert = store epoch bump = result-cache invalidation.
-    `bus` and `lineage` are not ported: non-None raises."""
-    _not_ported("bus", bus)
-    _not_ported("lineage", lineage)
+    With `bus` set, one WindowClosed batch publishes AFTER the insert
+    (on top of the store's own StoreMutation hook, if connected):
+    standing queries re-evaluate once per sink call with the closed
+    windows' times as the event clock. With `lineage` set, each inserted
+    window's store.insert hop records and its VISIBILITY freshness lag
+    anchors here — the row just became queryable."""
     ensure_system_table(store)
 
     def sink(windows) -> None:
+        import contextlib
+
         rows = []
         for f in windows:
             rows.extend(flow_window_rows(f, **row_kw))
-        if rows:
-            store.insert(DEEPFLOW_SYSTEM_DB, DEEPFLOW_SYSTEM_TABLE,
-                         sketch_rows_to_columns(rows))
+        # bus.batch(): the insert's StoreMutation and the data-timed
+        # WindowClosed events coalesce into ONE dispatch
+        with (bus.batch() if bus is not None else contextlib.nullcontext()):
+            if rows:
+                store.insert(DEEPFLOW_SYSTEM_DB, DEEPFLOW_SYSTEM_TABLE,
+                             sketch_rows_to_columns(rows))
+            if bus is not None and windows:
+                from ..querier.events import docbatch_events
+
+                evs = docbatch_events(windows, db=DEEPFLOW_SYSTEM_DB,
+                                      table=DEEPFLOW_SYSTEM_TABLE)
+                if evs:
+                    bus.publish(evs)
+        if lineage is not None and windows:
+            # AFTER the insert: the visibility lag is "row queryable", not
+            # "sink called" (partial snapshots never insert here, and must
+            # never masquerade as post-flush visibility)
+            lineage.note_store_insert(
+                [(getattr(f, "interval", 0) or lineage.interval, f.window_idx)
+                 for f in windows if not getattr(f, "partial", False)])
 
     return sink
 
@@ -454,14 +484,17 @@ def docbatch_window_sink(store, *, interval: int = 1,
     deepflow_system (time = window start, labels {window, tier}, value
     = row count) — the minimal "this window is queryable" insert.
     Outputs may be DocBatches or (tier_interval_s, DocBatch) pairs (the
-    cascade shape). `bus` and `lineage` are not ported: non-None
-    raises."""
-    _not_ported("bus", bus)
-    _not_ported("lineage", lineage)
+    cascade shape). With `lineage` set each window's store.insert hop
+    and VISIBILITY freshness lag anchor AFTER the insert; with `bus` set
+    one WindowClosed/TierClosed batch publishes after it."""
+    import contextlib
+
     ensure_system_table(store)
 
     def sink(outputs) -> None:
         rows = []
+        items = []
+        events = []
         for o in outputs:
             iv, db = o if isinstance(o, tuple) else (interval, o)
             if db.timestamp.shape[0] == 0:
@@ -469,9 +502,24 @@ def docbatch_window_sink(store, *, interval: int = 1,
             w = int(db.timestamp[0]) // iv
             rows.append((w * iv, metric, {"window": str(w), "tier": f"{iv}s"},
                          float(db.timestamp.shape[0])))
-        if rows:
+            items.append((iv, w))
+            if bus is not None:
+                from ..querier.events import TierClosed, WindowClosed
+
+                events.append(
+                    WindowClosed(DEEPFLOW_SYSTEM_DB, DEEPFLOW_SYSTEM_TABLE, w * iv, iv)
+                    if iv <= interval else
+                    TierClosed(DEEPFLOW_SYSTEM_DB, DEEPFLOW_SYSTEM_TABLE, w * iv, iv))
+        if not rows:
+            return
+        with (bus.batch() if bus is not None else contextlib.nullcontext()):
             store.insert(DEEPFLOW_SYSTEM_DB, DEEPFLOW_SYSTEM_TABLE,
                          sketch_rows_to_columns(rows))
+            if events and bus is not None:
+                bus.publish(events)
+        if lineage is not None:
+            # AFTER the insert — visibility means "row queryable now"
+            lineage.note_store_insert(items)
 
     return sink
 

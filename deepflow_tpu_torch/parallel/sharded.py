@@ -44,7 +44,11 @@ cascade tiers with the server's datasource registry, and reports
 `telemetry()`: counters, span summary and the per-plane bytes with the
 device count.
 
-Not ported: lineage (`attach_lineage`).
+Window lineage (`attach_lineage`), the single-chip manager's twin: the
+dispatch stamp and the batch's window span come from the host columns
+the gate already holds, the advance is decided on the host before the
+dispatch, and the flush, tier-close and snapshot seams record their
+hops — no device fetch.
 """
 
 from __future__ import annotations
@@ -557,6 +561,10 @@ class ShardedWindowManager:
         self.dispatch_retries = 0
         self.fetch_retries = 0
         self.tracer = SpanTracer(service="deepflow_tpu.sharded_pipeline")
+        # window lineage plane: optional per-window hop recorder — host
+        # wall stamps only (the window spans come from the host timestamp
+        # arrays the gate already reads)
+        self.lineage = None
         # multi-host placement labels: with a MeshTopology, rows carry the
         # shard group + process so a fleet dashboard can tell hosts apart
         topo_tags = {}
@@ -863,6 +871,9 @@ class ShardedWindowManager:
         flushed = self._group_rows_by_window(per_dev, self.interval)
         for db in flushed:
             self.total_flushed += db.size
+        if self.lineage is not None and flushed:
+            self.lineage.note_flush_windows(
+                [(int(db.timestamp[0]) // self.interval, db.size) for db in flushed])
         return flushed
 
     def _group_rows_by_window(self, per_dev, interval: int) -> list:
@@ -897,6 +908,10 @@ class ShardedWindowManager:
                        for dev, t in enumerate(t_np)]
             batches = self._group_rows_by_window(per_dev, interval)
             self.tier_windows_flushed += len(batches)
+            if self.lineage is not None and batches:
+                self.lineage.note_tier_windows(
+                    [(interval, int(db.timestamp[0]) // interval, db.size)
+                     for db in batches])
             self.tier_windows_dropped += hold_blocks(
                 self.tier_flushed, [(interval, db) for db in batches],
                 self.max_held_tier_windows)
@@ -945,6 +960,8 @@ class ShardedWindowManager:
             snap = self._read_open_snapshot(now)
         self.snapshot_seq += 1
         snap.seq = self.snapshot_seq
+        if self.lineage is not None and snap.windows:
+            self.lineage.note_snapshot([(w.window_idx, w.count) for w in snap.windows])
         self._snapshot_cache = snap
         return snap
 
@@ -1060,10 +1077,22 @@ class ShardedWindowManager:
         def on_retry(_attempt, _exc):
             self.dispatch_retries += 1
 
+        lin = self.lineage
+        d0 = lin.clock() if lin is not None else 0.0
         with self.tracer.span(SPAN_INGEST_DISPATCH):
             self.stash, self.acc, self.sketches = retry_call(
                 dispatch_once, self.retry_policy, on_retry=on_retry, rng=self._retry_rng,
                 classify=is_dispatch_transient)
+        if lin is not None:
+            # bind this batch's window span (ts_np is host: the gate
+            # above computed on it, no transfer)
+            live = valid_np & ~late if n_late else valid_np
+            span = None
+            if live.any():
+                ts_live = ts_np[live]
+                span = (int(ts_live.min()) // self.interval,
+                        int(ts_live.max()) // self.interval)
+            lin.note_dispatch(span, d0)
         self.fill += rows_per_device
 
         flushed = []
@@ -1078,11 +1107,20 @@ class ShardedWindowManager:
             self.tracer.record(SPAN_WINDOW_ADVANCE,
                                close_us + int((time.perf_counter() - t0) * 1e6),
                                start_s=adv_wall)
+            if lin is not None:
+                # sharded advances are decided on the host before the
+                # dispatch: its stamp is the derived time base
+                lin.note_advance(self.start_window, new_start, (d0, d0))
             with self.tracer.span(SPAN_FLUSH_DRAIN):
                 flushed = self._drain_range(self.start_window, new_start)
             self.start_window = new_start
             self.n_advances += 1
         return flushed
+
+    def attach_lineage(self, tracker) -> None:
+        """Wire a tracing/lineage.LineageTracker (the single-chip
+        WindowManager.attach_lineage twin)."""
+        self.lineage = tracker
 
     def make_feeder(self, queues, bucket_sizes, config=None, *, journal_dir=None, **kw):
         """This shard group behind a feeder runtime: flowframes from

@@ -257,13 +257,24 @@ def profile_tick_sink(bus, *, ledger: DeviceMemoryLedger | None = None,
                       db: str = "deepflow_system",
                       table: str = "deepflow_system"):
     """→ a StatsCollector sink publishing a `ProfileSnapshot` event on
-    `bus` at each collector tick, in the reference. The port has no
-    push-event bus yet (querier/events.py is not ported), so a non-None
-    `bus` raises NotImplementedError; with `bus=None` the sink does
-    nothing, as the reference's does."""
-    if bus is not None:
-        raise NotImplementedError(
-            "profile_tick_sink(bus=...) publishes querier.events.ProfileSnapshot; "
-            "the push plane (querier/events.py) is not ported yet"
-        )
-    return lambda points: None
+    `bus` at each collector tick: the moment profiling rows land in
+    deepflow_system, standing queries / span-latency alert rules over it
+    re-evaluate. Sink-only (never fires on pull-path `sample()` reads,
+    so dashboard pulls don't publish); with `bus=None` it does nothing."""
+    led = default_ledger if ledger is None else ledger
+
+    def sink(points) -> None:
+        if not points or bus is None:
+            return
+        from ..querier.events import ProfileSnapshot
+
+        with led._lock:
+            led.seq += 1
+            seq = led.seq
+        # the event clock is the tick's own sample timestamp — the time
+        # column the rows landed under — so rule evaluations run at data
+        # time (deterministic under replay), never the wall
+        t = max(int(p.timestamp) for p in points)
+        bus.publish(ProfileSnapshot(db, table, seq, t))
+
+    return sink

@@ -61,6 +61,15 @@ SPAN_FEEDER_DRAIN = "feeder.drain"  # queue gets + frame decode
 SPAN_FEEDER_COALESCE = "feeder.coalesce"  # bucket assembly + pad
 SPAN_FEEDER_DISPATCH = "feeder.dispatch"  # staged batch → sink ingest
 
+# Push query plane — emitted by querier/subscribe.py and
+# querier/alerts.py on their own tracers; also not pipeline vocabulary
+# (a pipeline can run with no standing queries). One span per
+# subscription/rule evaluation, so fan-out latency (flush → watcher
+# delivery) is attributable separately from the pull path's
+# query.snapshot/query.cache lanes.
+SPAN_SUBSCRIPTION_EVAL = "subscribe.eval"  # one shared eval serving N watchers
+SPAN_ALERT_EVAL = "alert.eval"  # rule query + state-machine step
+
 PIPELINE_SPAN_NAMES = (
     SPAN_INGEST_DISPATCH,
     SPAN_STATS_FETCH,
@@ -78,6 +87,15 @@ class SpanRecord:
     name: str
     start_s: float  # wall-clock epoch seconds (for export timestamps)
     duration_us: int  # monotonic-clock measured
+    # window-lineage context: when a stage span belongs to a window's
+    # lineage trace, these carry the DERIVED ids
+    # (tracing/lineage.window_trace_id — the window id IS the context)
+    # and export_otlp emits them instead of synthesizing singleton ids;
+    # `window` is the per-window correlation key ("<idx>@<interval>s").
+    trace_id: str = ""
+    span_id: str = ""
+    parent_span_id: str = ""
+    window: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,13 +195,18 @@ class SpanTracer:
         finally:
             self.record(name, int((time.perf_counter() - t0) * 1e6), start_s=wall)
 
-    def record(self, name: str, duration_us: int, start_s: float | None = None):
+    def record(self, name: str, duration_us: int, start_s: float | None = None,
+               *, trace_id: str = "", span_id: str = "",
+               parent_span_id: str = "", window: str = ""):
         """Record a pre-measured span — for stages whose work is split
         across non-contiguous host sections (e.g. the sharded advance:
         sketch close before the append, fold after) that must count as
-        ONE logical span so cross-path stage attribution compares."""
+        ONE logical span so cross-path stage attribution compares.
+        Optional trace/parent ids + the per-window correlation key ride
+        into the export ring (lineage-context stage spans)."""
         rec = SpanRecord(name, time.time() if start_s is None else start_s,
-                         int(duration_us))
+                         int(duration_us), trace_id=trace_id, span_id=span_id,
+                         parent_span_id=parent_span_id, window=window)
         # the bin is computed outside the lock (pure math), but EVERY
         # aggregate mutation — scalar lanes and the histogram counter —
         # happens under the tracer lock: record() runs concurrently from
@@ -325,11 +348,21 @@ class SpanTracer:
                 [r.duration_us for r in recs], np.uint32
             ),
             "app_service": np.asarray([self.service] * n),
-            "endpoint": np.asarray([r.name for r in recs]),
-            # every stage span is its own singleton trace
-            "trace_id": np.asarray([f"{seq0 + i + 1:032x}" for i in range(n)]),
-            "span_id": np.asarray([f"{seq0 + i + 1:016x}" for i in range(n)]),
-            "parent_span_id": np.full(n, ""),
+            # the window correlation key (when set) suffixes the
+            # endpoint so per-window stage spans stay distinguishable
+            # in the trace backend
+            "endpoint": np.asarray(
+                [f"{r.name}:{r.window}" if r.window else r.name for r in recs]
+            ),
+            # records carrying lineage context keep their DERIVED ids;
+            # plain stage spans synthesize singleton ids
+            "trace_id": np.asarray(
+                [r.trace_id or f"{seq0 + i + 1:032x}" for i, r in enumerate(recs)]
+            ),
+            "span_id": np.asarray(
+                [r.span_id or f"{seq0 + i + 1:016x}" for i, r in enumerate(recs)]
+            ),
+            "parent_span_id": np.asarray([r.parent_span_id for r in recs]),
         }
         exporter.export(table, cols)
         return n

@@ -1061,3 +1061,105 @@ def test_ledger_bytes_within_allocated_and_fetch_free(cuda):
     assert pipe.wm.host_fetches == fetches  # a snapshot fetches nothing
     assert 0 < total <= delta
     pipe.close()
+
+
+def _lineage_stream(dev, lineage: bool):
+    """A small slab L4Pipeline stream with a live read and a drain; with
+    `lineage`, a LineageTracker on a frozen clock. Returns the windows,
+    host fetches and (with lineage) what the tracker recorded."""
+    import dataclasses
+
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.sketchplane import SketchConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+    from deepflow_tpu_torch.ops.histogram import LogHistSpec
+    from deepflow_tpu_torch.tracing.lineage import FreshnessTracker, LineageTracker
+
+    sk = SketchConfig(num_groups=4, hll_precision=8, cms_depth=2, cms_width=512,
+                      hist=LogHistSpec(bins=64, vmin=1.0, gamma=1.2), topk_rows=2,
+                      topk_cols=64, pending=8)
+    pipe = L4Pipeline(PipelineConfig(window=WindowConfig(
+        capacity=1 << 13, sketch=sk, stats_ring=4, min_snapshot_interval=0.0),
+        batch_size=2048), device=dev)
+    clock = [2e9]
+    lin = fr = None
+    if lineage:
+        fr = FreshnessTracker(autoregister=False)
+        lin = LineageTracker("tpu.pipeline", 1, freshness=fr, clock=lambda: clock[0])
+        pipe.attach_lineage(lin)
+    gen = SyntheticFlowGen(num_tuples=800, seed=5)
+    docs = []
+    for i in range(7):
+        clock[0] = 2e9 + 10.0 * i
+        docs += pipe.ingest(gen.flow_batch(2048, 1_700_000_000 + i))
+        if i == 3:
+            pipe.snapshot_open(force=True)
+    docs += pipe.drain()
+    out = {"docs": [(db.timestamp.tobytes(), db.tags.tobytes(), db.meters.tobytes())
+                    for db in docs], "fetches": pipe.wm.host_fetches}
+    if lineage:
+        out["spans"] = [dataclasses.astuple(r) for r in lin.drain_spans()]
+        out["fresh"] = fr.get_counters()
+        lin.close()
+    return out
+
+
+@pytest.mark.cuda
+def test_lineage_adds_no_fetch_and_records_as_the_cpu(cuda):
+    passive = _lineage_stream(cuda, False)
+    card = _lineage_stream(cuda, True)
+    host = _lineage_stream(torch.device("cpu"), True)
+    assert card["fetches"] == passive["fetches"] == host["fetches"]
+    assert card["docs"] == passive["docs"] == host["docs"]
+    assert card["spans"] and card["spans"] == host["spans"]
+    assert card["fresh"] == host["fresh"]
+
+
+def _subscription_results(dev):
+    """A WindowManager's closed windows into a store through the bus-aware
+    sink; one SQL and one PromQL standing query record every delivery."""
+    from deepflow_tpu_torch.aggregator.window import WindowConfig, WindowManager
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+    from deepflow_tpu_torch.integration import dfstats
+    from deepflow_tpu_torch.querier.events import QueryEventBus, connect_store_events
+    from deepflow_tpu_torch.querier.live import LiveRegistry
+    from deepflow_tpu_torch.querier.subscribe import SubscriptionManager
+    from deepflow_tpu_torch.storage.store import ColumnarStore
+
+    store = ColumnarStore()
+    dfstats.ensure_system_table(store)
+    bus = QueryEventBus(name="cuda-subs")
+    connect_store_events(store, bus)
+    subs = SubscriptionManager(store, live=LiveRegistry(), cache=False, bus=bus, device=dev)
+    sql, prom = [], []
+    db, table = dfstats.DEEPFLOW_SYSTEM_DB, dfstats.DEEPFLOW_SYSTEM_TABLE
+    subs.subscribe_sql(f"SELECT Sum(value) AS s, Max(value) AS m FROM {db}.{table}",
+                       callback=lambda r, s: sql.append([list(map(float, r.values[c]))
+                                                         for c in r.columns]))
+    subs.subscribe_promql(f"sum({dfstats.LIVE_METRIC_FLOW_BYTES})", span_s=6, step=1, db=db,
+                          table=table, lookback_s=3, callback=lambda r, s: prom.append(r))
+    wm = WindowManager(WindowConfig(capacity=1 << 12), device=dev)
+    sink = dfstats.flow_window_sink(store, bus=bus)
+    rng = np.random.default_rng(3)
+    for s in range(8):
+        n = 300
+        keys = rng.integers(0, 90, n).astype(np.uint32)
+        tags = np.zeros((TAG_SCHEMA.num_fields, n), np.uint32)
+        tags[TAG_SCHEMA.index("server_port")] = keys
+        meters = np.zeros((FLOW_METER.num_fields, n), np.float32)
+        meters[FLOW_METER.index("byte_tx")] = rng.random(n).astype(np.float32) * 1e4
+        out = wm.ingest(np.full(n, 1_700_000_000 + s, np.uint32), keys * np.uint32(2654435761),
+                        keys ^ np.uint32(0x9E3779B9), tags, meters, np.ones(n, bool))
+        if out:
+            sink([f for f in out if f.count])
+    sink([f for f in wm.flush_all() if f.count])
+    subs.close()
+    return sql, prom
+
+
+@pytest.mark.cuda
+def test_subscriptions_card_equal_cpu(cuda):
+    card = _subscription_results(cuda)
+    host = _subscription_results(torch.device("cpu"))
+    assert card[0] and card == host

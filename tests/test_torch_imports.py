@@ -60,7 +60,9 @@ def test_port_and_chip_smoke_import_no_jax():
                 "agent.l7.parsers_mq", "agent.l7.parsers_rpc", "agent.l7.parsers_w4",
                 "agent.l7.plugins", "ingest.sender", "profiling", "profiling.ledger",
                 "profiling.census", "integration", "integration.formats",
-                "integration.dfstats", "utils.provenance"):
+                "integration.dfstats", "utils.provenance", "tracing", "tracing.tree",
+                "tracing.builder", "tracing.query", "tracing.lineage", "querier.events",
+                "querier.promql", "querier.subscribe", "querier.alerts"):
         assert f"deepflow_tpu_torch.{mod}" in result["imported"]
     forbidden = [m for m in result["modules"] if _is_forbidden(m)]
     assert forbidden == []

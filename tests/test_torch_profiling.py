@@ -16,6 +16,7 @@ imports `jax.core.Jaxpr`).
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import threading
 
@@ -238,13 +239,37 @@ def test_ledger_pending_flush_plane_under_async_drain():
     pipe.close()
 
 
-def test_profile_tick_sink_bus_waits_for_the_push_plane():
+def test_profile_tick_sink_bus_publishes_the_reference_snapshot():
+    """`profile_tick_sink(bus)` publishes the reference's ProfileSnapshot
+    events for the same ticks (seq from the ledger's clock, time = the
+    tick's newest sample); without a bus it does nothing."""
+    from deepflow_tpu.profiling.ledger import DeviceMemoryLedger as RefLedger
+    from deepflow_tpu.profiling.ledger import profile_tick_sink as ref_tick_sink
+    from deepflow_tpu.querier.events import QueryEventBus as RefBus
+    from deepflow_tpu.utils.stats import StatsPoint as RefPoint
+    from deepflow_tpu_torch.querier.events import QueryEventBus
+    from deepflow_tpu_torch.utils.stats import StatsPoint
+
     led = DeviceMemoryLedger()
-    sink = profile_tick_sink(None, ledger=led)
-    sink([object()])
+    profile_tick_sink(None, ledger=led)([object()])
     assert led.seq == 0  # no bus: nothing published, the clock stays
-    with pytest.raises(NotImplementedError, match="push"):
-        profile_tick_sink(object())
+    ticks = [[(T0, "tpu_hbm", 1.0)], [(T0 + 5, "tpu_hbm", 2.0), (T0 + 9, "tpu_pipeline", 3.0)],
+             []]
+    seen = {}
+    for name, bus_cls, point_cls, ledger_cls, make in (
+            ("ref", RefBus, RefPoint, RefLedger, ref_tick_sink),
+            ("port", QueryEventBus, StatsPoint, DeviceMemoryLedger, profile_tick_sink)):
+        bus = bus_cls(name=f"tick-{name}")
+        got = []
+        bus.subscribe(lambda evs, got=got: got.extend(evs), name="obs")
+        ledger = ledger_cls()
+        sink = make(bus, ledger=ledger, db="deepflow_system", table="deepflow_system")
+        for tick in ticks:
+            sink([point_cls(module=m, tags=(), fields={"v": v}, timestamp=t)
+                  for t, m, v in tick])
+        seen[name] = ([(type(e).__name__, dataclasses.astuple(e)) for e in got], ledger.seq)
+    assert seen["port"] == seen["ref"]
+    assert [e[1][3] for e in seen["port"][0]] == [T0, T0 + 9] and seen["port"][1] == 2
 
 
 # ---------------------------------------------------------------------------

@@ -221,14 +221,76 @@ def test_sketch_block_rows_equal_the_reference():
     assert len(rows["metric"]) == len(got)
 
 
-def test_sinks_refuse_the_planes_not_ported():
-    store = ColumnarStore()
-    for make in (lambda: dfstats.sketch_system_sink(store, bus=object()),
-                 lambda: dfstats.flow_window_sink(store, bus=object()),
-                 lambda: dfstats.flow_window_sink(store, lineage=object()),
-                 lambda: dfstats.docbatch_window_sink(store, lineage=object())):
-        with pytest.raises(NotImplementedError):
-            make()
+def _sink_planes_run(pkg: str):
+    """The closed-window sinks with `bus=` and `lineage=` over one set of
+    inputs: every published batch (event types and fields) and every
+    lineage hop and lag, under a frozen clock."""
+    import dataclasses
+
+    if pkg == "ref":
+        from deepflow_tpu.aggregator.window import FlushedWindow
+        from deepflow_tpu.datamodel.batch import DocBatch
+        from deepflow_tpu.datamodel.schema import FLOW_METER as M, TAG_SCHEMA as T
+        from deepflow_tpu.querier.events import QueryEventBus, connect_store_events
+        from deepflow_tpu.storage.store import ColumnarStore as Store
+        from deepflow_tpu.tracing.lineage import FreshnessTracker, LineageTracker
+        mod, sp, cfg = ref_dfstats, ref_sp, ref_sp.SketchConfig(hist=RefLogHistSpec(**_HIST), **_SK)
+    else:
+        from deepflow_tpu_torch.aggregator.window import FlushedWindow
+        from deepflow_tpu_torch.datamodel.batch import DocBatch
+        from deepflow_tpu_torch.datamodel.schema import FLOW_METER as M, TAG_SCHEMA as T
+        from deepflow_tpu_torch.querier.events import QueryEventBus, connect_store_events
+        from deepflow_tpu_torch.storage.store import ColumnarStore as Store
+        from deepflow_tpu_torch.tracing.lineage import FreshnessTracker, LineageTracker
+        mod, sp, cfg = dfstats, port_sp, SketchConfig(hist=LogHistSpec(**_HIST), **_SK)
+    clock = [2e9]
+    lin = LineageTracker("tpu.pipeline", 1, freshness=FreshnessTracker(autoregister=False),
+                         clock=lambda: clock[0])
+    store = Store()
+    bus = QueryEventBus(name=f"sinks-{pkg}")
+    connect_store_events(store, bus)
+    batches = []
+    bus.subscribe(lambda evs: batches.append(
+        [(type(e).__name__, dataclasses.astuple(e)) for e in evs]), name="obs")
+    rng = np.random.default_rng(21)
+    n = 5
+    tags = rng.integers(0, 1000, (n, T.num_fields)).astype(np.uint32)
+    meters = rng.integers(0, 100, (n, M.num_fields)).astype(np.float32)
+    keys = rng.integers(0, 2 ** 32, (2, n), dtype=np.uint64).astype(np.uint32)
+    windows = [FlushedWindow(window_idx=T0 + i, start_time=T0 + i, key_hi=keys[0],
+                             key_lo=keys[1], tags=tags, meters=meters, count=n)
+               for i in range(3)]
+    mod.sketch_system_sink(store, bus=bus, topk=8)([_random_block(np.random.default_rng(3),
+                                                                  sp, cfg)])
+    clock[0] += 1.0
+    mod.flow_window_sink(store, bus=bus, lineage=lin)(windows)
+    clock[0] += 1.0
+    docs = [DocBatch(tags=tags, meters=meters, timestamp=np.full(n, t, np.uint32),
+                     valid=np.ones(n, bool), tag_schema=T, meter_schema=M)
+            for t in (T0 + 5, T0 + 60)]
+    mod.docbatch_window_sink(store, bus=bus, lineage=lin)([docs[0], (60, docs[1])])
+    records = {k: ({h: (a.start_s, a.end_s, a.count, a.rows) for h, a in r.hops.items()},
+                   dict(r.lags)) for k, r in lin._windows.items()}
+    out = (batches, records, lin.freshness.get_counters(), store.row_count(
+        mod.DEEPFLOW_SYSTEM_DB, mod.DEEPFLOW_SYSTEM_TABLE))
+    lin.close()
+    return out
+
+
+def test_sinks_bus_and_lineage_match_the_reference():
+    """`bus=` and `lineage=` of sketch_system_sink, flow_window_sink and
+    docbatch_window_sink: the port publishes the reference's event
+    batches (one dispatch per sink call, the insert's StoreMutation
+    coalesced with the close events) and records its store.insert hops
+    and visibility lags."""
+    ref, port = _sink_planes_run("ref"), _sink_planes_run("port")
+    assert port == ref
+    batches, records, fresh, _ = port
+    assert len(batches) == 3  # one dispatch per sink call
+    assert {k for b in batches for k, _ in b} == {"StoreMutation", "WindowClosed",
+                                                  "TierClosed"}
+    assert (60, (T0 + 60) // 60) in records and "store.insert" in records[(1, T0)][0]
+    assert fresh["1s.visibility_samples"] == 4 and fresh["60s.visibility_samples"] == 1
 
 
 def test_live_sources_and_window_sinks():
