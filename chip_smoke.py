@@ -245,6 +245,33 @@ loudly with a nonzero exit:
    and every stored window has store.insert and query.first. Printed:
    events per pump and the CUDA-event wall of one SQL subscription
    re-evaluation and of one SQL rule evaluation.
+3p. The multi-process deployment: host processes, each joined over gloo
+   by MeshTopology.distributed, sharing the one card (count 1), launch
+   counts summed over the processes (each counts its own from its
+   start). (a) tests/torch_mesh_harness.py's recipes at their test size
+   with every host on the card — the clean two-process run and the
+   kill-and-recover run side by side, then the clean rebalance — each
+   group's rows and sketch blocks (from the hosts' .npz) against the
+   harness's CPU oracle in this process under the float rule (integers
+   and integer-valued floats below 2^24 exact, MAX exact, SUM within
+   rtol 1e-5, a histogram count one bin at most), counters and
+   freshness lags exact; misroutes equal the frames of the other
+   group's agents, all handed off; ≤ 3 fetches an ingest, none
+   off-device; the census's buckets steady; the killed host's combined
+   stream and the moved group's stream across both owners equal the
+   oracle's; the handover pause (release and adopt ms). (b) Two hosts
+   at full width, one group each of 2 logical shards with BASELINE
+   config 5 (`sharded_config()`), fed the bench.py stream
+   (SyntheticFlowGen(10_000, seed=0), 2^21 rows a second cut into 8
+   agents' 2048-row frames, each agent sent to its owner) through
+   receiver → queue → FeederRuntime → ShardedFeedSink at 2^18-row
+   buckets for 4 seconds (3 timed, both hosts started together; the
+   4th profiled) and a drain; each group against one process serving
+   both groups on the card (MeshTopology.single) under the same rule.
+   Printed: per-host and aggregate records/s, the init_process_group
+   wall, fetches an ingest, the profiled ingest's launches and idle
+   share per host. Any host that exits non-zero (but the scripted
+   kill), times out or ran elsewhere than on the card fails the phase.
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
@@ -274,6 +301,7 @@ loudly with a nonzero exit:
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import inspect
@@ -4249,6 +4277,330 @@ def lineage_phase(dev, sk_cfg) -> tuple[dict, dict]:
     return launches, summary
 
 
+# phase 3p: the multi-process deployment. The card is one (count 1), so
+# every host process of a run shares cuda:0; each joins the gloo process
+# group of MeshTopology.distributed, owns one shard group and routes the
+# other's agents away. (a) runs tests/torch_mesh_harness.py's recipes at
+# their test size on the card against its CPU oracle; (b) runs two hosts
+# at full width (BASELINE config 5 per shard, 2 shards a group) on the
+# bench.py stream against one process serving both groups on the card.
+MESH_SECONDS = 4  # (b): seconds of the bench.py stream, the last one profiled
+MESH_AGENTS = 8
+MESH_FRAME_ROWS = 2048
+MESH_SHARDS = 2  # (b): logical shards of the card per group
+MESH_HOST_TIMEOUT_S = 300
+MESH_HOST_ARGV = [os.path.abspath(__file__), "--mesh-host"]  # (b)'s host entry
+
+
+def mesh_harness():
+    """tests/torch_mesh_harness.py (JAX-free) as a module."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_mesh_harness
+
+    return torch_mesh_harness
+
+
+def mesh_frames(gen, second: int, agents) -> list:
+    """One second of the bench.py stream (BATCH rows of `gen`) cut into
+    MESH_AGENTS equal slices — agent a sends slice a — as (agent, frame)
+    pairs of 2048-row TAGGEDFLOW frames for `agents` only. Every host
+    draws the whole second: the generator is stateful."""
+    from deepflow_tpu_torch.feeder import encode_flowbatch_frames
+
+    fb = gen.flow_batch(BATCH, T0 + second)
+    n = BATCH // MESH_AGENTS
+    return [(a, raw) for a in agents
+            for raw in encode_flowbatch_frames(fb.slice(a * n, (a + 1) * n), agent_id=a,
+                                               org_id=1, max_rows_per_frame=MESH_FRAME_ROWS)]
+
+
+def mesh_runner(th, topology, workdir):
+    """A host's full-width stack: receiver → one queue a group →
+    FeederRuntime (one pump takes a whole second) → ShardedFeedSink at
+    3j's 2^18-row bucket → BASELINE config 5 per shard."""
+    from deepflow_tpu_torch.feeder import FeederConfig
+
+    return th.HostRunner(topology, workdir, cfg=sharded_config(), buckets=(FULL_BUCKET,),
+                         feeder_config=FeederConfig(frames_per_queue=BATCH // MESH_FRAME_ROWS,
+                                                    rounds_per_pump=1),
+                         queue_capacity=4 * BATCH // MESH_FRAME_ROWS, journal=False)
+
+
+def mesh_host_main(spec: dict) -> int:
+    """One full-width host of phase 3p (b), spawned by the parent as
+    `chip_smoke.py --mesh-host SPEC`: bring-up over gloo, its own agents'
+    frames of MESH_SECONDS seconds built first, a file barrier so both
+    hosts start together, every second but the last timed, the last
+    profiled, a drain; its results and rows beside spec["out"]."""
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+    from deepflow_tpu_torch.parallel.hostproc import await_peers, exit_after_barrier, mark_done
+    from deepflow_tpu_torch.parallel.topology import MeshTopology
+
+    th = mesh_harness()
+    dev = torch.device(spec["device"])
+    pid = int(spec["process_id"])
+    t = time.perf_counter()
+    topo = MeshTopology.distributed(spec["coordinator"], 2, pid, n_groups=2,
+                                    devices_per_group=MESH_SHARDS, devices=[dev] * MESH_SHARDS)
+    init_s = time.perf_counter() - t
+    statement = [[str(d) for d in row] for row in topo.global_mesh().devices]
+    runner = mesh_runner(th, topo, spec["workdir"])
+    fetch = th.fetch_shim(topo)
+    agents = [a for a, g in th.agent_groups().items() if topo.owns_group(g)]
+    gen = SyntheticFlowGen(num_tuples=10_000, seed=0)
+    t = time.perf_counter()
+    seconds = [mesh_frames(gen, s, agents) for s in range(MESH_SECONDS)]
+    frames_s = time.perf_counter() - t
+
+    def ingest(frames):
+        runner.dispatch_step(frames)
+        runner.pump()
+
+    ready = os.path.join(spec["workdir"], "ready")
+    os.makedirs(ready, exist_ok=True)
+    mark_done(ready, pid)
+    check(await_peers(ready, pid, 2), f"3p full p{pid}: the peer never got ready")
+    t_first = time.time()
+    walls = [synced(lambda f=f: ingest(f))[1] for f in seconds[:-1]]
+    t_last = time.time()
+    rows = sum(len(f) for f in seconds[:-1]) * MESH_FRAME_ROWS
+    profile = profile_cycle(lambda: ingest(seconds[-1]), host_ops=False)
+    _, drain_s = synced(runner.finish)
+    res = runner.results()
+    res.update({
+        "process_index": pid, "init_s": init_s, "global_mesh": statement, "agents": agents,
+        "rows_timed": rows, "walls_s": walls, "t_first": t_first, "t_last": t_last,
+        "frames_s": frames_s, "drain_s": drain_s, "profile": {
+            k: profile[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                    "kernel_launches", "copies")},
+        "fetch": {**fetch, "n_ingests": runner.n_ingests},
+        "device": th.device_report(dev, runner), "launches": th.kernel_launches()})
+    th.write_result(spec, runner, res)
+    exit_after_barrier(spec["workdir"], pid, 2)
+    return 0
+
+
+def check_mesh_host(res: dict, what: str) -> None:
+    """A host of 3p ran on this card and launched both kernels."""
+    check(res["device"] == {"name": torch.cuda.get_device_name(0), "stash": ["cuda"]},
+          f"3p {what}: the host ran on {res['device']}, not on this card")
+    check(res["launches"]["segreduce_gather"] > 0 and res["launches"]["sketch_fused"] > 0,
+          f"3p {what}: launches {res['launches']}")
+
+
+def check_mesh_groups(th, res: dict, rows: dict, oracle: dict, want: dict, what: str,
+                      groups=None) -> int:
+    """Each group of `res` against the oracle: counters and freshness
+    lags exact, rows and sketch blocks under the float rule; returns the
+    histogram counts moved."""
+    moved = 0
+    for g in groups or res["groups"]:
+        rec, o = res["groups"][g], oracle["groups"][g]
+        check(rec["counters"] == o["counters"], f"3p {what}: group {g} counters differ")
+        check(rec["fresh"] == o["fresh"], f"3p {what}: group {g} freshness lags differ")
+        for kind in ("docs", "blocks"):
+            moved += th.check_rows_close(rows[int(g)][kind], want[int(g)][kind],
+                                         f"3p {what} group {g} {kind}")
+    return moved
+
+
+def mesh_rows(th, d, name: str) -> dict:
+    return th.load_rows(os.path.join(d, f"{name}.npz"))
+
+
+def mesh_test_size(th, dev, work: str) -> tuple[dict, dict]:
+    """3p (a): the harness's clean two-process run, the kill-and-recover
+    recipe and the clean rebalance recipe with every host on the card,
+    against the harness's CPU oracles in this process. Returns (launches
+    summed over the hosts, summary)."""
+    oracle = th.run_oracle("cpu", with_rows=True)
+    want = th.load_rows(oracle.pop("rows"))
+    rb_oracle = th.run_rebalance_oracle("cpu", with_rows=True)
+    rb_want = th.load_rows(rb_oracle.pop("rows"))
+    hosts, moved, walls = [], 0, {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[f"{name}_s"] = time.perf_counter() - t
+        return out
+
+    # the clean and the kill recipe share nothing: run them side by side
+    # (the rebalance recipe runs alone below, so its pause is its own)
+    d, dk = os.path.join(work, "clean"), os.path.join(work, "kill")
+    os.makedirs(d)
+    os.makedirs(dk)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        clean = pool.submit(timed, "clean", th.spawn_distributed, d, device=dev.type)
+        killed = pool.submit(timed, "kill", th.run_kill, dk, device=dev.type)
+        procs, kill = clean.result(), killed.result()
+    groups_of = th.agent_groups()
+    for pid, res in enumerate(procs):
+        check_mesh_host(res, f"clean p{pid}")
+        hosts.append(res)
+        moved += check_mesh_groups(th, res, mesh_rows(th, d, f"result.p{pid}"), oracle, want,
+                                   f"clean p{pid}")
+        owned = {int(g) for g in res["groups"]}
+        other = th.N_STEPS * sum(1 for g in groups_of.values() if g not in owned)
+        c = res["receiver"]
+        check(c["frames_misrouted"] == c["frames_handoff"] == res["handoffs"] == other
+              and c["handoff_errors"] == 0,
+              f"3p clean p{pid}: misroutes {c['frames_misrouted']}, handoffs "
+              f"{c['frames_handoff']}, want {other}")
+        f = res["fetch"]
+        check(f["n"] <= 3 * f["n_ingests"] and f["nonlocal"] == 0 and f["retraces"] == 0,
+              f"3p clean p{pid}: fetches {f}")
+    check(procs[0]["global_mesh"] == procs[1]["global_mesh"]
+          == [[str(d) for d in th.host_devices(dev.type)]] * 2,
+          f"3p: the pod-mesh statements {[r['global_mesh'] for r in procs]}")
+
+    for name, res in (("p0", kill["p0"]), ("p1_gen1", kill["p1_gen1"]),
+                      ("p1_gen2", kill["p1_gen2"])):
+        check_mesh_host(res, f"kill {name}")
+        hosts.append(res)
+    moved += check_mesh_groups(th, kill["p0"], mesh_rows(th, dk, "result.p0"), oracle, want,
+                               "kill p0")
+    (g1,) = kill["p1_gen1"]["groups"]
+    gen1, gen2 = kill["p1_gen1"]["groups"][g1], kill["p1_gen2"]["groups"][g1]
+    r1 = mesh_rows(th, dk, "result.p1")[int(g1)]
+    r2 = mesh_rows(th, dk, "result.p1.gen2")[int(g1)]
+    moved += th.check_rows_close(r1["docs"][:gen1["ckpt_stream_len"]] + r2["docs"],
+                                 want[int(g1)]["docs"], "3p kill: the combined stream")
+    moved += th.check_rows_close(r1["blocks"][:gen1["ckpt_blocks_len"]] + r2["blocks"],
+                                 want[int(g1)]["blocks"], "3p kill: the combined blocks")
+    check(all(gen2["counters"][k] == oracle["groups"][g1]["counters"][k] for k in
+              SHARD_COUNTERS), "3p kill: the recovered host's counters differ from the oracle's")
+
+    d = os.path.join(work, "rebalance")
+    os.makedirs(d)
+    r0, r1 = timed("rebalance", th.spawn_hosts, th.rebalance_specs(d, device=dev.type))
+    for pid, res in enumerate((r0, r1)):
+        check_mesh_host(res, f"rebalance p{pid}")
+        hosts.append(res)
+        f = res["fetch"]
+        check(f["n"] <= 3 * f["n_ingests"] and f["nonlocal"] == 0
+              and all(a == b for a, b in res["caches"].values()),
+              f"3p rebalance p{pid}: fetches {f}, census {res['caches']}")
+    mv = str(th.MOVE_GROUP)
+    rows0, rows1 = mesh_rows(th, d, "result.p0"), mesh_rows(th, d, "result.p1")
+    moved += check_mesh_groups(th, r0, rows0, rb_oracle, rb_want, "rebalance p0", groups=["0"])
+    for kind in ("docs", "blocks"):
+        moved += th.check_rows_close(rows1[int(mv)][kind] + rows0[int(mv)][kind],
+                                     rb_want[int(mv)][kind], f"3p rebalance: moved {kind}")
+    check(all(r0["groups"][mv]["counters"][k] == rb_oracle["groups"][mv]["counters"][k]
+              for k in SHARD_COUNTERS), "3p rebalance: the moved group's counters differ")
+    n_move = sum(1 for g in groups_of.values() if g == th.MOVE_GROUP)
+    fwd = n_move * (th.REROUTE_AT - th.REBALANCE_AT - 1)
+    check(r1["sender"]["tx_frames"] == r0["handoff_rx"]["rx_frames"] == fwd
+          and r1["sender"]["shed_frames"] == 0
+          and r0["receiver"]["frames_held"] == r0["receiver"]["frames_redelivered"] == n_move,
+          f"3p rebalance: wire {r1['sender']} / {r0['handoff_rx']}")
+    launches = {k: sum(h["launches"][k] for h in hosts) for k in hosts[0]["launches"]}
+    return launches, {
+        "hosts": len(hosts), "walls_s": walls, "hist_counts_moved": moved,
+        "init_s": [r["init_s"] for r in procs],
+        "fetches_per_ingest": [r["fetch"]["n"] / r["fetch"]["n_ingests"] for r in procs],
+        "misrouted": [r["receiver"]["frames_misrouted"] for r in procs],
+        "handover_ms": {"release": r1["handover_ms"]["release"],
+                        "adopt": r0["handover_ms"]["adopt"]},
+        "handoff_frames": fwd, "held_redelivered": n_move,
+        "launches_per_host": [h["launches"] for h in hosts]}
+
+
+def mesh_full_width(th, dev, work: str) -> tuple[dict, dict]:
+    """3p (b): two hosts at full width on the card, then one process
+    serving both groups on the card over the same frames as their
+    oracle. Returns (launches summed over the two hosts, summary)."""
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+    from deepflow_tpu_torch.parallel.topology import MeshTopology, free_coordinator_port
+
+    d = os.path.join(work, "full")
+
+    def specs():
+        coord = f"127.0.0.1:{free_coordinator_port()}"
+        return [{"argv": MESH_HOST_ARGV, "mode": "full",
+                 "coordinator": coord, "num_processes": 2, "process_id": pid,
+                 "device": dev.type, "workdir": d, "out": os.path.join(d, f"result.p{pid}.json")}
+                for pid in range(2)]
+
+    torch.cuda.empty_cache()
+    os.makedirs(d)
+    t = time.perf_counter()
+    try:
+        procs = th.spawn_hosts(specs(), timeout_s=MESH_HOST_TIMEOUT_S)
+    except th.PortLost:
+        for f in os.listdir(d):
+            os.unlink(os.path.join(d, f))
+        procs = th.spawn_hosts(specs(), timeout_s=MESH_HOST_TIMEOUT_S)
+    hosts_s = time.perf_counter() - t
+    for pid, res in enumerate(procs):
+        check_mesh_host(res, f"full p{pid}")
+        check(res["receiver"]["frames_misrouted"] == 0 and res["receiver"]["no_handler"] == 0,
+              f"3p full p{pid}: receiver {res['receiver']}")
+        f = res["fetch"]
+        check(f["n"] <= 3 * f["n_ingests"] and f["nonlocal"] == 0, f"3p full p{pid}: {f}")
+
+    # the oracle: one process, both groups, the same frames and pumps
+    od = os.path.join(d, "oracle")
+    os.makedirs(od)
+    topo = MeshTopology.single(n_groups=2, devices_per_group=MESH_SHARDS,
+                               devices=[dev] * (2 * MESH_SHARDS))
+    runner = mesh_runner(th, topo, od)
+    gen = SyntheticFlowGen(num_tuples=10_000, seed=0)
+    t = time.perf_counter()
+    for s in range(MESH_SECONDS):
+        runner.dispatch_step(mesh_frames(gen, s, range(MESH_AGENTS)))
+        runner.pump()
+    runner.finish()
+    oracle_s = time.perf_counter() - t
+    oracle = runner.results()
+    want = th.load_rows(runner.row_arrays())
+    runner.close()
+    del runner
+    torch.cuda.empty_cache()
+    moved = 0
+    for pid, res in enumerate(procs):
+        moved += check_mesh_groups(th, res, mesh_rows(th, d, f"result.p{pid}"), oracle, want,
+                                   f"full p{pid}")
+    check(sum(r["groups"][g]["counters"]["flow_in"] for r in procs for g in r["groups"])
+          == MESH_SECONDS * BATCH, "3p full: the hosts did not ingest every row")
+    rows = [r["rows_timed"] for r in procs]
+    span = max(r["t_last"] for r in procs) - min(r["t_first"] for r in procs)
+    launches = {k: sum(r["launches"][k] for r in procs) for k in procs[0]["launches"]}
+    return launches, {
+        "hosts": 2, "shards_per_group": MESH_SHARDS, "batch": BATCH,
+        "seconds": MESH_SECONDS, "timed_seconds": MESH_SECONDS - 1, "agents": [r["agents"] for r in procs],
+        "records_per_s": [n / sum(r["walls_s"]) for n, r in zip(rows, procs)],
+        "aggregate_records_per_s": sum(rows) / span,
+        "init_process_group_s": [r["init_s"] for r in procs],
+        "fetches_per_ingest": [r["fetch"]["n"] / r["fetch"]["n_ingests"] for r in procs],
+        "ingests": [r["fetch"]["n_ingests"] for r in procs],
+        "profiled_ingest": [r["profile"] for r in procs],
+        "frames_build_s": [r["frames_s"] for r in procs],
+        "drain_s": [r["drain_s"] for r in procs], "hosts_wall_s": hosts_s,
+        "oracle_s": oracle_s, "hist_counts_moved": moved,
+        "launches_per_host": [r["launches"] for r in procs]}
+
+
+def mesh_phase(dev, gpu: str) -> tuple[dict, dict, dict]:
+    """Phase 3p: the multi-process deployment on the card, (a) at test
+    size, (b) at full width. Returns (test-size launches, full-width
+    launches, summary)."""
+    import shutil
+    import tempfile
+
+    th = mesh_harness()
+    work = tempfile.mkdtemp(prefix="chip_smoke_3p_")
+    t = time.perf_counter()
+    try:
+        small_launches, small = mesh_test_size(th, dev, work)
+        full_launches, full = mesh_full_width(th, dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return small_launches, full_launches, {"gpu": gpu, "test_size": small, "full_width": full,
+                                           "phase_s": time.perf_counter() - t}
+
+
 def load_other_port(path: str):
     """The ops.segreduce and ops.sketch_fused modules of another checkout
     of this repo (for example the parent commit, unpacked with git
@@ -4329,6 +4681,8 @@ def main() -> int:
     from deepflow_tpu_torch.kernels import build
 
     dev = torch.device("cuda")
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-host":
+        return mesh_host_main(json.loads(sys.argv[2]))  # a 3p host process
     gpu = device_line()
     name = torch.cuda.get_device_name(0)
     print(gpu)
@@ -4551,6 +4905,13 @@ def main() -> int:
     emit({"phase": "lineage", **lineage_summary})
     torch.cuda.empty_cache()
 
+    # 3p. the multi-process deployment: host processes over
+    # MeshTopology.distributed sharing the card, at test size against the
+    # CPU oracle and at full width against one process (mesh_phase)
+    main_mesh_small, main_mesh_full, mesh_summary = mesh_phase(dev, gpu)
+    emit({"phase": "multiprocess", **mesh_summary})
+    torch.cuda.empty_cache()
+
     # 3g. the counter ring and async drain at full width: the 3c stream,
     # 3 batches a second for T0 … T0+5, staged on the card once and
     # ingested by three pipelines in turn
@@ -4723,6 +5084,9 @@ def main() -> int:
             "launches_sharded_cascade": main_sharded_casc[k],
             "launches_server": main_server[k], "launches_agent": main_agent[k],
             "launches_selfobs": main_selfobs[k], "launches_lineage": main_lineage[k],
+            # 3p: summed over the host processes (each counts its own)
+            "launches_multiprocess": main_mesh_full[k],
+            "launches_multiprocess_test_size": main_mesh_small[k],
         })
     # the server path's downsample group-by (fused gather only)
     check(kernels[0]["name"] == "segreduce_gather", "kernels line order")
@@ -4746,6 +5110,8 @@ def main() -> int:
         "launches_server": main_server[sk_name], "launches_agent": main_agent[sk_name],
         "launches_selfobs": main_selfobs[sk_name],
         "launches_lineage": main_lineage[sk_name],
+        "launches_multiprocess": main_mesh_full[sk_name],
+        "launches_multiprocess_test_size": main_mesh_small[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
@@ -4812,6 +5178,17 @@ def main() -> int:
                           "packets": ag["packets"], "requests": ag["requests"],
                           "run_pcap_s": ag["run_pcap_s"], "fetches": ag["fetches"],
                           "stored_rows": ag["stored_rows"], "docs_written": ag["docs_written"]}))
+    mf, ms = mesh_summary["full_width"], mesh_summary["test_size"]
+    print(json.dumps({"metric": "port_multiprocess_records_per_sec",
+                      "value": mf["aggregate_records_per_s"], "unit": "records/s", "gpu": gpu,
+                      "hosts": 2, "per_host": mf["records_per_s"],
+                      "init_process_group_s": mf["init_process_group_s"],
+                      "fetches_per_ingest": mf["fetches_per_ingest"],
+                      "idle_share_profiled_ingest": [p["idle_share"]
+                                                     for p in mf["profiled_ingest"]],
+                      "launches_profiled_ingest": [p["kernel_launches"]
+                                                   for p in mf["profiled_ingest"]],
+                      "handover_ms": ms["handover_ms"], "handoff_frames": ms["handoff_frames"]}))
     print(json.dumps({"phase": "profiler_gaps", "gaps": PROFILER_GAPS}))
     print(json.dumps({"gpu": gpu, "kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

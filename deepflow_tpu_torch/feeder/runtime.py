@@ -956,7 +956,7 @@ class FeederRuntime:
                     err = chaos.RebalanceAbortError(
                         f"feeder {self.name}: queue backlog did not shrink across a "
                         f"quiesce pump ({qlen} → {now_qlen} frames) — admission was "
-                        "not fenced before the handover"
+                        "not fenced before the handover (flip the route epoch first)"
                     )
                     err.outputs = out
                     raise err

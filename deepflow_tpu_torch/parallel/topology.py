@@ -1,5 +1,5 @@
-"""Mesh topology and key-hash shard-group placement — the single-process
-part (port of deepflow_tpu/parallel/topology.py).
+"""Mesh topology and key-hash shard-group placement (port of
+deepflow_tpu/parallel/topology.py).
 
 The pod's devices form ONE logical mesh, split into shard groups; each
 group belongs to exactly one process (host). Agents route to groups by
@@ -9,16 +9,25 @@ hosts: every `ShardedPipeline` runs on its group's own devices
 whose filenames carry the process index (`host_path`). A restoring host
 rebuilds its groups from its own files alone (`standalone`).
 
+Bring-up (`distributed`) joins a `torch.distributed` process group over
+gloo. It carries only the handshake — each process checks the rank and
+world size it was given — and the pod-wide topology statement
+(`global_mesh`: every process's device names, gathered once as Python
+objects). No tensor ever travels on the group and no collective runs on
+the data path: misrouted frames travel the counted TCP handoff
+(ingest/handoff.py), groups move by checkpoint handover
+(parallel/rebalance.py) and per-host stats merge at the fleet
+aggregator (fleet/).
+
 `agent_key_words` / `key_shard_group` are bit-equal to the reference's
-(the same packing and the same murmur fold, ops/hashing.py). Not ported
-yet: `MeshTopology.distributed` and `global_mesh`, which need a process
-group (`torch.distributed`), and the rebalance and host-process
-harness around them.
+(the same packing and the same murmur fold, ops/hashing.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import socket
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +37,10 @@ from ..ops.hashing import fingerprint64_words
 from .mesh import MESH_AXES, Mesh, make_mesh
 
 AXIS_HOST, AXIS_CHIP = MESH_AXES
+
+#: how long `distributed` waits for its peers at bring-up: a dead peer
+#: fails the handshake in seconds, not after torch's 30-minute default
+BRINGUP_TIMEOUT_S = 60.0
 
 
 # ---------------------------------------------------------------------------
@@ -75,6 +88,9 @@ class MeshTopology:
     n_groups: int
     devices_per_group: int
     local_devices: tuple = dataclasses.field(repr=False)
+    # True only for topologies that joined a torch.distributed process
+    # group (named is_distributed: `distributed` is the classmethod)
+    is_distributed: bool = False
     group_overrides: tuple = ()
     topology_epoch: int = 0
 
@@ -113,6 +129,45 @@ class MeshTopology:
         devs = tuple(make_mesh(devices=devices).flat())
         return cls(process_index=0, process_count=1, n_groups=n_groups,
                    devices_per_group=devices_per_group, local_devices=devs)
+
+    @classmethod
+    def distributed(cls, coordinator_address: str, num_processes: int, process_id: int, *,
+                    n_groups: int | None = None, devices_per_group: int | None = None,
+                    initialize: bool = True, devices=None,
+                    timeout_s: float = BRINGUP_TIMEOUT_S) -> "MeshTopology":
+        """The multi-process bring-up: join the gloo process group at
+        `coordinator_address` ("host:port"; rank 0 hosts its store), check
+        the rank and world size it reports against the caller's, then the
+        topology over this process's devices (`devices`, default the
+        visible CUDA devices). `n_groups` defaults to one group per
+        process, `devices_per_group` to local devices / local groups.
+        `initialize=False` uses a process group the caller already
+        joined."""
+        import torch.distributed as dist
+
+        if initialize:
+            dist.init_process_group(
+                "gloo", init_method=f"tcp://{coordinator_address}",
+                world_size=num_processes, rank=process_id,
+                timeout=datetime.timedelta(seconds=timeout_s))
+        if not dist.is_initialized():
+            raise ValueError("initialize=False but no torch.distributed process group "
+                             "is initialized")
+        pc, pi = dist.get_world_size(), dist.get_rank()
+        if pc != num_processes or pi != process_id:
+            raise ValueError(
+                f"torch.distributed reports process {pi}/{pc}, caller expected "
+                f"{process_id}/{num_processes}"
+            )
+        local = tuple(make_mesh(devices=devices).flat())
+        if n_groups is None:
+            n_groups = pc
+        gpp = n_groups // max(pc, 1)
+        if devices_per_group is None:
+            devices_per_group = max(len(local) // max(gpp, 1), 1)
+        return cls(process_index=pi, process_count=pc, n_groups=n_groups,
+                   devices_per_group=devices_per_group, local_devices=local,
+                   is_distributed=True)
 
     @classmethod
     def standalone(cls, process_index: int, process_count: int, *,
@@ -201,6 +256,35 @@ class MeshTopology:
         dpg = self.devices_per_group
         return make_mesh(devices=self.local_devices[k * dpg:(k + 1) * dpg])
 
+    def global_mesh(self) -> Mesh:
+        """The pod-wide (process_count, per_host) mesh — a statement of
+        which devices every process holds, from which the device → process
+        map derives. Nothing dispatches to it (`group_mesh` is the
+        dispatch surface). A distributed topology gathers every process's
+        device names once over the process group (a collective: every
+        process calls it); a standalone view of several processes has no
+        global view and raises."""
+        if not self.is_distributed and self.process_count > 1:
+            raise ValueError(
+                "standalone topology has no global device view — only processes "
+                "that joined torch.distributed (or single-process topologies) can "
+                "state the pod mesh"
+            )
+        names = [[str(d) for d in self.local_devices]]
+        if self.is_distributed and self.process_count > 1:
+            import torch.distributed as dist
+
+            names = [None] * self.process_count
+            dist.all_gather_object(names, [str(d) for d in self.local_devices])
+        per_host = {len(n) for n in names}
+        if len(per_host) != 1:
+            raise ValueError(f"processes hold unequal device counts {[len(n) for n in names]}"
+                             " — the pod mesh needs the same count on every host")
+        arr = np.empty((len(names), per_host.pop()), dtype=object)
+        for p, row in enumerate(names):
+            arr[p, :] = [torch.device(n) for n in row]
+        return Mesh(arr, axis_names=MESH_AXES)
+
     # -- per-host ownership ----------------------------------------------
     def host_path(self, base, group: int | None = None) -> Path:
         """`base` with the process index (and the shard group) in its
@@ -246,3 +330,14 @@ class MeshTopology:
                 f"process restores into {here_shape} ({'; '.join(mismatches)}) — "
                 "per-device stashes cannot be re-split across a different topology"
             )
+
+
+def free_coordinator_port() -> int:
+    """A free localhost TCP port for a `distributed` coordinator. The
+    socket closes before the coordinator binds, so a caller can lose the
+    port to another process and should retry its spawn once."""
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+import torch_mesh_harness as th  # tests/: JAX-free, like this file
 
 from deepflow_tpu_torch.ops import segreduce, sketch_fused, topk
 from deepflow_tpu_torch.ops.segment import segment_ids, sort_keys, sort_perm
@@ -1163,3 +1164,34 @@ def test_subscriptions_card_equal_cpu(cuda):
     card = _subscription_results(cuda)
     host = _subscription_results(torch.device("cpu"))
     assert card[0] and card == host
+
+
+@pytest.mark.cuda
+def test_two_process_mesh_on_the_card_equals_the_cpu_oracle(cuda, tmp_path):
+    """The harness's two-process run over MeshTopology.distributed, both
+    processes on cuda:0 at test size: every group's rows and sketch
+    blocks equal the CPU oracle's under the float rule, counters and
+    freshness lags exactly, and both kernels launched in every host."""
+    procs = th.spawn_distributed(tmp_path, device="cuda")
+    oracle = th.run_oracle("cpu", with_rows=True)
+    want = th.load_rows(oracle.pop("rows"))
+    for pid, res in enumerate(procs):
+        rows = th.load_rows(tmp_path / f"result.p{pid}.npz")
+        for g, rec in res["groups"].items():
+            assert rec["counters"] == oracle["groups"][g]["counters"]
+            assert rec["fresh"] == oracle["groups"][g]["fresh"]
+            th.check_rows_close(rows[int(g)]["docs"], want[int(g)]["docs"], f"group {g} docs")
+            th.check_rows_close(rows[int(g)]["blocks"], want[int(g)]["blocks"],
+                                f"group {g} blocks")
+        assert res["launches"]["segreduce_gather"] > 0 and res["launches"]["sketch_fused"] > 0
+        assert res["fetch"]["nonlocal"] == 0 and res["fetch"]["retraces"] == 0
+
+
+@pytest.mark.cuda
+def test_harness_child_reports_the_card(cuda, tmp_path):
+    """A child asked for the card runs there: its name is the card's and
+    its stash lives on CUDA."""
+    spec = {"mode": "standalone", "num_processes": 1, "process_id": 0, "device": "cuda",
+            "workdir": str(tmp_path), "out": str(tmp_path / "result.p0.json")}
+    (res,) = th.spawn_hosts([spec])
+    assert res["device"] == {"name": torch.cuda.get_device_name(0), "stash": ["cuda"]}

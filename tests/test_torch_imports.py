@@ -1,7 +1,9 @@
 """The port imports neither JAX nor the JAX package.
 
-A fresh interpreter imports every module of deepflow_tpu_torch and
-chip_smoke.py, then lists sys.modules. Names are checked exactly: the
+A fresh interpreter imports every module of deepflow_tpu_torch,
+chip_smoke.py and tests/torch_mesh_harness.py with every module the
+harness imports (it imports them inside its functions, so they are
+found by walking its source), then lists sys.modules. Names are checked exactly: the
 port's own package name starts with "deepflow_tpu", so a prefix test
 on that string would match the port itself."""
 
@@ -22,7 +24,16 @@ names = [m.name for m in pkgutil.walk_packages(deepflow_tpu_torch.__path__, "dee
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-print(json.dumps({"imported": names, "modules": sorted(sys.modules)}))
+import ast
+sys.path.insert(0, "tests")
+import torch_mesh_harness
+tree = ast.parse(open(torch_mesh_harness.__file__).read())
+harness = sorted({n.module if isinstance(n, ast.ImportFrom) else a.name
+                  for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom))
+                  for a in n.names})
+for name in harness:
+    importlib.import_module(name)
+print(json.dumps({"imported": names, "harness": harness, "modules": sorted(sys.modules)}))
 """
 
 
@@ -62,8 +73,16 @@ def test_port_and_chip_smoke_import_no_jax():
                 "profiling.census", "integration", "integration.formats",
                 "integration.dfstats", "utils.provenance", "tracing", "tracing.tree",
                 "tracing.builder", "tracing.query", "tracing.lineage", "querier.events",
-                "querier.promql", "querier.subscribe", "querier.alerts"):
+                "querier.promql", "querier.subscribe", "querier.alerts",
+                "parallel.hostproc", "parallel.rebalance", "ingest.handoff", "controller",
+                "controller.rebalance", "fleet", "fleet.frame", "fleet.sink",
+                "fleet.aggregator"):
         assert f"deepflow_tpu_torch.{mod}" in result["imported"]
+    # the harness chip_smoke spawns reaches the port's multi-process modules
+    for mod in ("parallel.topology", "parallel.hostproc", "parallel.rebalance",
+                "ingest.handoff", "fleet"):
+        assert f"deepflow_tpu_torch.{mod}" in result["harness"]
+    assert not [m for m in result["harness"] if _is_forbidden(m)]
     forbidden = [m for m in result["modules"] if _is_forbidden(m)]
     assert forbidden == []
     assert "deepflow_tpu_torch" in result["modules"]
