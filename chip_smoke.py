@@ -2389,15 +2389,14 @@ def server_stream(dev):
     return frames, len(msgs), gen, t - T0
 
 
-def server_platform(gen):
-    """The K8s-limit platform registry, numpy form (built once on the host)."""
-    from deepflow_tpu_torch import convert
-    from deepflow_tpu_torch.enrich.platform import PlatformInfoTable
-
+def server_platform_rows(gen) -> tuple[list, list, list]:
+    """The K8s-limit platform registry as rows: (interface infos as
+    `PlatformInfoTable.add_info` keywords, gprocesses as (gpid, agent,
+    pod), pod services as (service id, pod group))."""
     rng = np.random.default_rng(0)
-    pt = PlatformInfoTable(my_region_id=SERVER_REGION)
     p = gen.pop
     n_t = len(p["ip0"])
+    infos, gprocs = [], []
     # pods 1..10,000 take the stream's addresses (ip0 then ip1 with their
     # EPCs); the rest get unique 11.x addresses in EPCs 1..49
     macs = rng.choice(1 << 40, SERVER_PODS, replace=False) + (0x02 << 40)
@@ -2414,19 +2413,34 @@ def server_platform(gen):
         node = 1 + i % SERVER_NODES
         # one pod in 25 sits in another region (its docs are dropped)
         region = SERVER_REGION + 1 if pod % 25 == 0 else SERVER_REGION
-        pt.add_info(epc_id=epc, ips=[ip], mac=int(macs[i]), pod_id=pod, region_id=region,
-                    host_id=node, l3_device_id=pod, l3_device_type=10, subnet_id=1 + i % 4096,
-                    pod_node_id=node, pod_ns_id=1 + i % 500, az_id=1 + i % 3,
-                    pod_group_id=1 + i % SERVER_POD_SERVICES, pod_group_type=101,
-                    pod_cluster_id=1)
-        pt.add_gprocess(gpid=pod, agent_id=1 + i % SERVER_AGENTS, pod_id=pod)
+        infos.append(dict(epc_id=epc, ips=[ip], mac=int(macs[i]), pod_id=pod, region_id=region,
+                          host_id=node, l3_device_id=pod, l3_device_type=10,
+                          subnet_id=1 + i % 4096, pod_node_id=node, pod_ns_id=1 + i % 500,
+                          az_id=1 + i % 3, pod_group_id=1 + i % SERVER_POD_SERVICES,
+                          pod_group_type=101, pod_cluster_id=1))
+        gprocs.append((pod, 1 + i % SERVER_AGENTS, pod))
     for node in range(1, SERVER_NODES + 1):
-        pt.add_info(epc_id=1 + node % 49, ips=[0xC0A80000 + node], region_id=SERVER_REGION,
-                    host_id=node, l3_device_id=200_000 + node, l3_device_type=14,
-                    subnet_id=8192 + node % 64, pod_node_id=node, az_id=1 + node % 3,
-                    pod_cluster_id=1)
-    for g in range(1, SERVER_POD_SERVICES + 1):
-        pt.add_pod_service(500_000 + g, pod_group_id=g)
+        infos.append(dict(epc_id=1 + node % 49, ips=[0xC0A80000 + node],
+                          region_id=SERVER_REGION, host_id=node, l3_device_id=200_000 + node,
+                          l3_device_type=14, subnet_id=8192 + node % 64, pod_node_id=node,
+                          az_id=1 + node % 3, pod_cluster_id=1))
+    services = [(500_000 + g, g) for g in range(1, SERVER_POD_SERVICES + 1)]
+    return infos, gprocs, services
+
+
+def server_platform(gen):
+    """The K8s-limit platform registry, numpy form (built once on the host)."""
+    from deepflow_tpu_torch import convert
+    from deepflow_tpu_torch.enrich.platform import PlatformInfoTable
+
+    pt = PlatformInfoTable(my_region_id=SERVER_REGION)
+    infos, gprocs, services = server_platform_rows(gen)
+    for info in infos:
+        pt.add_info(**info)
+    for gpid, agent, pod in gprocs:
+        pt.add_gprocess(gpid=gpid, agent_id=agent, pod_id=pod)
+    for sid, group in services:
+        pt.add_pod_service(sid, pod_group_id=group)
     return convert.platform_state_to_numpy(pt.build(device="cpu"))
 
 
@@ -2704,7 +2718,8 @@ def enrich_chunk_profile(state, tags: np.ndarray) -> dict:
 def server_phase(dev, gpu: str):
     """Phase 3l: the server deployment on the card, counts zeroed before
     its main path and read after. Returns (launches, segreduce parity at
-    the downsample shape, summary)."""
+    the downsample shape, summary, the platform's numpy form, and the
+    stream (frames, docs, generator) that 3q sends again)."""
     import shutil
     import tempfile
 
@@ -2815,7 +2830,375 @@ def server_phase(dev, gpu: str):
         "prep_s": {"stream": t_stream, "platform": t_platform},
         "phase_s": time.perf_counter() - t_phase,
     }
-    return launches, ds_parity, summary, plat
+    return launches, ds_parity, summary, plat, (frames, n_docs, gen)
+
+
+# phase 3q: the composed server — server/main.py's Server, as
+# `dfctl server` runs it, at 3l's width. It boots from a dict config on
+# the card (4 decode workers, ephemeral ports), takes 3l's large-cluster
+# platform through its own resource plane (the pod and node interfaces
+# as a file-reader cloud source that the leader's tick reconciles
+# through the recorder; the pod services and gprocesses as resources),
+# compiles it onto the card on its tick, receives 3l's frames over TCP,
+# has one pod service replaced mid-stream, rolls 1 s up to 1 h on a
+# tick, and answers over REST, debug UDP, MCP and `dfctl query`. A
+# Server on the CPU fed the same frames and resources is its twin.
+COMPOSED_GROUP = 1  # the pod group whose service is replaced mid-stream
+COMPOSED_NEW_SERVICE = 600_001
+COMPOSED_SQL = SERVER_SQL[:10]  # the statements over network_1s / _1h
+COMPOSED_WAIT_S = 300  # a dead decode worker is silent: the wait fails
+# the CPU twin runs as its own process beside the card's run (its decode
+# workers take another interpreter lock, not the card run's)
+COMPOSED_TWIN_ARGV = [os.path.abspath(__file__), "--composed-twin"]
+COMPOSED_TWIN_THREADS = 2  # the twin's torch CPU threads
+
+
+def composed_config(root: str) -> dict:
+    return {"receiver": {"tcp_port": 0, "udp_port": 0},
+            "ingester": {"n_decoders": 4, "queue_capacity": 1 << 15},
+            "storage": {"root": root}, "wire": {"enabled": False},
+            "region_id": SERVER_REGION}
+
+
+def composed_register(srv, rows) -> None:
+    """3l's platform into the server's resource plane."""
+    from deepflow_tpu_torch.controller.cloud import FileReaderPlatform
+
+    infos, gprocs, services = rows
+    # the resource plane's interfaces carry no pod group type
+    vifs = [{k: v for k, v in info.items() if k != "pod_group_type"} for info in infos]
+    # reconciled now, as a cloud task's poll does (the leader's ticks poll
+    # it again and find it unchanged)
+    srv.add_cloud_source(FileReaderPlatform({"resources": {}, "vinterfaces": vifs},
+                                            domain="k8s-large")).poll()
+    for gpid, agent, pod in gprocs:
+        srv.resources.put("gprocess", gpid, f"gprocess-{gpid}", agent_id=agent, pod_id=pod)
+    for sid, group in services:
+        srv.resources.put("pod_service", sid, f"service-{group}", pod_group_id=group)
+
+
+def composed_send(srv, frames, total: int) -> float:
+    """Frames over one TCP connection; waits until every doc is decoded,
+    enriched and handed to the writer. Returns the seconds it took."""
+    import socket
+
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", srv.receiver.tcp_port)) as s:
+        s.sendall(b"".join(frames))
+        deadline = time.time() + COMPOSED_WAIT_S
+        while True:
+            c = srv.flow_metrics.get_counters()  # raises if a worker died
+            if (c["docs_in"] == total and c["docs_written"] + c["drop_other_region"] == total
+                    and srv.doc_writer.counters["rows"] == c["docs_written"]):
+                break
+            check(time.time() < deadline, f"3q: the server did not settle {c}")
+            time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def composed_http(port: int, path: str, body=None):
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    with urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=data), timeout=120) as r:
+        return json.loads(r.read())
+
+
+def composed_run(dev, frames, n_docs: int, rows, root: str) -> dict:
+    """One Server through the whole 3q scenario on `dev`: the results
+    are host values only (they cross from the twin's process as JSON)."""
+    import contextlib
+    import io
+
+    from deepflow_tpu_torch import cli
+    from deepflow_tpu_torch.server.debug import debug_request
+    from deepflow_tpu_torch.server.main import Server
+    from deepflow_tpu_torch.utils.config import load_config
+
+    card = dev.type == "cuda"
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    cfg, unknown = load_config(composed_config(root))
+    check(unknown == [], f"3q: unknown config keys {unknown}")
+    t0 = time.perf_counter()
+    srv = Server(cfg, exporters=[], device=dev).start()
+    refresh_ms = []
+    refresh = srv.refresh_platform
+
+    def timed_refresh():
+        t = time.perf_counter()
+        refresh()
+        sync()
+        refresh_ms.append((time.perf_counter() - t) * 1e3)
+
+    srv.refresh_platform = timed_refresh
+    out = {"device": str(dev)}
+    try:
+        composed_register(srv, rows)
+        ticks = [srv.tick(now=T0)]  # every node compiles the new platform first
+        sync()
+        out["boot_s"] = time.perf_counter() - t0
+        state = srv.flow_metrics.platform_state
+        check(ticks[0]["platform"] and state.device.type == dev.type
+              and srv.flow_log.platform_state is state,
+              f"3q: the platform is on {state.device}, ticks {ticks}")
+        half = len(frames) // 2
+        n_first = min(half * SERVER_FRAME_DOCS, n_docs)
+        dt_first = composed_send(srv, frames[:half], n_first)
+        # one resource changes: the group's pod service is replaced
+        srv.resources.delete("pod_service", 500_000 + COMPOSED_GROUP)
+        srv.resources.put("pod_service", COMPOSED_NEW_SERVICE, "service-new",
+                          pod_group_id=COMPOSED_GROUP)
+        ticks.append(srv.tick(now=T0 + 1))
+        check(ticks[-1]["platform"] and srv.flow_metrics.platform_state.device.type == dev.type,
+              f"3q: the change did not refresh the platform {ticks[-1]}")
+        dt_second = composed_send(srv, frames[half:], n_docs)
+        drain_writer(srv.doc_writer)
+        c = srv.flow_metrics.get_counters()
+        check(c["decode_errors"] == 0 and c["docs_in"] == n_docs and c["drop_other_region"] > 0
+              and c["enrich_fetches"] == c["enrich_chunks"] > 0, f"3q: ingester counters {c}")
+        srv.add_datasource(base_table="network_1s", interval="1h")
+        did = {}
+        ds_now = T0 + 3 * 3600
+        if card:
+            prof = profile_cycle(lambda: did.update(srv.tick(now=ds_now)))
+            out["downsample_tick"] = {k: prof[k] for k in (
+                "wall_ms", "device_busy_ms", "idle_share", "kernel_launches", "copies")}
+        else:
+            t = time.perf_counter()
+            did.update(srv.tick(now=ds_now))
+            out["downsample_tick"] = {"wall_ms": (time.perf_counter() - t) * 1e3}
+        check(did["downsampled"] > 0 and srv.downsampler.list()[0].name == "network_1h",
+              f"3q: the downsampling tick {did}")
+        ticks.append(did)
+        # the change is in the docs sent after it
+        cols = srv.store.scan("flow_metrics", "network_1s", columns=["pod_group_id_0",
+                                                                     "service_id_0"])
+        svc = cols["service_id_0"][cols["pod_group_id_0"] == COMPOSED_GROUP]
+        out["changed_service_rows"] = {"old": int((svc == 500_000 + COMPOSED_GROUP).sum()),
+                                       "new": int((svc == COMPOSED_NEW_SERVICE).sum())}
+        check(min(out["changed_service_rows"].values()) > 0,
+              f"3q: the service change is not in the rows {out['changed_service_rows']}")
+        # the server's own query surfaces
+        rest = srv.rest.port
+        results, rest_rows, rest_ms, cached_ms = [], [], [], []
+        for sql in COMPOSED_SQL:
+            # the first call computes (the server's engine caches results
+            # per store epoch); the second is served from the cache
+            for times in (rest_ms, cached_ms):
+                sync()
+                t = time.perf_counter()
+                got = composed_http(rest, "/v1/query", {"sql": sql})["rows"]
+                times.append((time.perf_counter() - t) * 1e3)
+            rest_rows.append(got)
+            results.append(srv.query.execute(sql))
+        health = composed_http(rest, "/v1/health")
+        datasources = composed_http(rest, "/v1/datasources")
+        profile = composed_http(rest, "/v1/profile/device?analyze=0")
+        check(health == {"status": "ok", "leader": True}
+              and [d["name"] for d in datasources if d["served_by"] == "downsampler"]
+              == ["network_1h"] and {"hbm", "hbm_totals", "census"} <= set(profile),
+              f"3q: REST answered {health} {datasources}")
+        dbg = {cmd: debug_request("127.0.0.1", srv.debug.port, {"cmd": cmd})
+               for cmd in ("ping", "tables", "datasources")}
+        check(dbg["ping"].get("pong") is True
+              and dbg["tables"]["tables"]["flow_metrics"]["network_1s"] > 0
+              and dbg["datasources"]["datasources"][0]["name"] == "network_1h",
+              f"3q: debug answered {dbg['ping']}")
+        mcp = srv.mcp.port
+        init = composed_http(mcp, "/mcp", {"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                                           "params": {}})
+        tool = composed_http(mcp, "/mcp", {"jsonrpc": "2.0", "id": 2, "method": "tools/call",
+                                           "params": {"name": "query_sql",
+                                                      "arguments": {"sql": COMPOSED_SQL[0]}}})
+        mcp_rows = json.loads(tool["result"]["content"][0]["text"])
+        check(init["result"]["serverInfo"]["name"].startswith("deepflow"),
+              f"3q: MCP initialize answered {init}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["query", "--store", root, "--device", dev.type, COMPOSED_SQL[0]])
+        dfctl_rows = json.loads(buf.getvalue())
+        check(mcp_rows == rest_rows[0], "3q: MCP and REST answer the first statement "
+                                        "differently")
+        # dfctl reads the parts back from disk, in another row order: its
+        # float32 sums may differ in the last bits
+        same_rest_rows(dfctl_rows, rest_rows[0], "3q: dfctl query against REST")
+        out.update({
+            "ticks": ticks, "counters": c, "refresh_ms": refresh_ms,
+            "docs_per_s": n_docs / (dt_first + dt_second),
+            "ingest_s": [dt_first, dt_second],
+            "rest_query_ms": {"median": statistics.median(rest_ms), "each": rest_ms,
+                              "cached_median": statistics.median(cached_ms)},
+            "fetches_per_chunk": c["enrich_fetches"] / c["enrich_chunks"],
+            "results": [{"columns": r.columns,
+                         "dtypes": {k: np.asarray(v).dtype.str for k, v in r.values.items()},
+                         "values": {k: np.asarray(v).tolist() for k, v in r.values.items()}}
+                        for r in results],
+            "rest_rows": rest_rows,
+            "tables": {t: srv.store.row_count("flow_metrics", t)
+                       for t in ("network_1s", "network_map_1s", "network_1h")},
+        })
+    finally:
+        srv.refresh_platform = refresh
+        srv.stop()
+    # a second start in the same process serves again, then stops
+    srv.start()
+    try:
+        check(composed_http(srv.rest.port, "/v1/health")["status"] == "ok",
+              "3q: the second start does not answer")
+        out["restart_tables"] = srv.store.row_count("flow_metrics", "network_1s")
+    finally:
+        srv.stop()
+    out["store"] = root
+    return out
+
+
+def same_rest_rows(a: list, b: list, what: str) -> None:
+    """REST rows card = CPU under the float rule of `same_result`."""
+    check(len(a) == len(b), f"{what}: {len(a)} card rows, {len(b)} CPU rows")
+    for x, y in zip(a, b):
+        check(sorted(x) == sorted(y), f"{what}: columns differ")
+        for k, v in y.items():
+            u = x[k]
+            if isinstance(v, float) and not (abs(v) < 2 ** 24 and v == round(v)):
+                ok = math.isclose(u, v, rel_tol=SUM_RTOL) or (math.isnan(u) and math.isnan(v))
+            else:
+                ok = u == v
+            check(ok, f"{what}: column {k} differs card vs CPU")
+
+
+def composed_twin_main(spec: dict) -> int:
+    """The CPU twin of 3q, in its own process (`chip_smoke.py
+    --composed-twin SPEC`): 3l's frames from the parent's file, the
+    platform rows from the stream's seed, one Server on the CPU."""
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    torch.set_num_threads(COMPOSED_TWIN_THREADS)
+    data = open(spec["frames"], "rb").read()
+    frames, off = [], 0
+    while off < len(data):  # each frame starts with its own u32 BE size
+        size = int.from_bytes(data[off:off + 4], "big")
+        frames.append(data[off:off + size])
+        off += size
+    rows = server_platform_rows(SyntheticFlowGen(num_tuples=5_000, seed=0))
+    out = composed_run(torch.device("cpu"), frames, spec["docs"], rows, spec["root"])
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def composed_result(rec: dict):
+    """A query result carried as JSON, back in the engine's Result."""
+    from deepflow_tpu_torch.querier import Result
+
+    return Result(columns=rec["columns"],
+                  values={k: np.asarray(v, dtype=rec["dtypes"][k])
+                          for k, v in rec["values"].items()})
+
+
+def composed_phase(dev, gpu: str, stream) -> tuple[dict, dict]:
+    """Phase 3q: the composed server on the card against its CPU twin
+    (another process, started first and run beside it), counts zeroed
+    before the card's run and read after it. Returns (launches, summary)."""
+    import shutil
+    import tempfile
+
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+    from deepflow_tpu_torch.storage.store import ColumnarStore
+
+    frames, n_docs, gen = stream
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_3q_")
+    twin = None
+    try:
+        spec = {"frames": os.path.join(work, "frames.bin"), "docs": n_docs,
+                "root": os.path.join(work, "cpu"), "result": os.path.join(work, "cpu.json")}
+        with open(spec["frames"], "wb") as f:
+            for fr in frames:
+                f.write(fr)
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        log = open(os.path.join(work, "twin.log"), "w")
+        twin = subprocess.Popen([sys.executable, *COMPOSED_TWIN_ARGV, json.dumps(spec)],
+                                env=env, stdout=log, stderr=subprocess.STDOUT)
+        # the platform rows come from the stream's seed, as the twin's do
+        seed_pop = SyntheticFlowGen(num_tuples=5_000, seed=0).pop
+        check(seed_pop.keys() == gen.pop.keys()
+              and all(np.array_equal(seed_pop[k], gen.pop[k]) for k in gen.pop),
+              "3q: the stream's population is not the seed's")
+        rows = server_platform_rows(gen)
+        reset_all_launch_counts()
+        card = composed_run(dev, frames, n_docs, rows, os.path.join(work, "card"))
+        launches = all_launches()
+        check(launches["segreduce_gather"] > 0 and launches["segreduce_sorted"] == 0
+              and launches["sketch_fused"] == 0, f"3q: composed server launches {launches}")
+        t_wait = time.perf_counter()
+        try:
+            rc = twin.wait(timeout=2 * COMPOSED_WAIT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        log.close()
+        check(rc == 0, f"3q: the CPU twin ended with {rc}: "
+                       f"{open(os.path.join(work, 'twin.log')).read()[-3000:]}")
+        twin_wait_s = time.perf_counter() - t_wait
+        with open(spec["result"]) as f:
+            host = json.load(f)
+        # (how frames group into decode batches, and so into enrichment
+        # chunks, depends on the workers' timing)
+        same = ("frames_in", "docs_in", "docs_written", "decode_errors", "drop_other_region",
+                "drop_second_write")
+        check({k: card["counters"][k] for k in same} == {k: host["counters"][k] for k in same}
+              and json.loads(json.dumps(card["ticks"])) == host["ticks"]
+              and card["changed_service_rows"] == host["changed_service_rows"],
+              f"3q: card and CPU servers counted differently: {card['counters']} "
+              f"{host['counters']} {card['ticks']} {host['ticks']}")
+        a, b = ColumnarStore(card["store"]), ColumnarStore(host["store"])
+        check(a.databases() == b.databases(), "3q: databases differ")
+        compared = {}
+        for db in b.databases():
+            check(a.tables(db) == b.tables(db), f"3q: {db} tables differ")
+            if db == "event":
+                continue  # resource-change events carry the wall clock
+            for t in b.tables(db):
+                if t == "network_1h":
+                    continue  # float32 sums: compared under the float rule below
+                x, y = a.scan(db, t), b.scan(db, t)
+                check(np.array_equal(rows_multiset(x), rows_multiset(y))
+                      and strings_of(a, db, t) == strings_of(b, db, t),
+                      f"3q: stored rows of {db}.{t} differ card vs CPU")
+                compared[f"{db}.{t}"] = len(next(iter(x.values()))) if x else 0
+        compared["flow_metrics.network_1h"] = same_rollup(a, b, "network_1h")
+        for sql, x, y in zip(COMPOSED_SQL, card["results"], host["results"]):
+            x = composed_result(x)
+            check(x.rows > 0, f"3q: no rows from {sql}")
+            same_result(x, composed_result(y), f"3q: {sql}")
+        for sql, x, y in zip(COMPOSED_SQL, card["rest_rows"], host["rest_rows"]):
+            same_rest_rows(x, y, f"3q REST: {sql}")
+    finally:
+        if twin is not None and twin.poll() is None:
+            twin.kill()
+            twin.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    summary = {
+        "gpu": gpu, "docs": n_docs, "frames": len(frames),
+        "platform": {"pods": SERVER_PODS, "nodes": SERVER_NODES,
+                     "pod_services": SERVER_POD_SERVICES},
+        "docs_per_s": card["docs_per_s"], "ingest_s": card["ingest_s"],
+        "boot_s": card["boot_s"], "refresh_platform_ms": card["refresh_ms"],
+        "downsample_tick": card["downsample_tick"],
+        "rest_query_ms": card["rest_query_ms"], "fetches_per_chunk": card["fetches_per_chunk"],
+        "counters": card["counters"], "changed_service_rows": card["changed_service_rows"],
+        "tables": card["tables"], "restart_tables": card["restart_tables"],
+        "compared_rows": compared, "launches": launches,
+        "cpu_twin": {"docs_per_s": host["docs_per_s"], "boot_s": host["boot_s"],
+                     "refresh_platform_ms": host["refresh_ms"], "wait_s": twin_wait_s,
+                     "torch_threads": COMPOSED_TWIN_THREADS},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return launches, summary
 
 
 # phase 3m: the agent deployment (BASELINE configs 1 and 2: a single
@@ -4674,6 +5057,8 @@ def against(path: str, dev) -> dict:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--composed-twin":
+        return composed_twin_main(json.loads(sys.argv[2]))  # 3q's CPU twin process
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
               file=sys.stderr)
@@ -4878,7 +5263,7 @@ def main() -> int:
 
     # 3l. the server deployment: receiver → decode → device enrichment →
     # columnar store → downsampler → SQL (server_phase)
-    main_server, ds_parity, server_summary, plat = server_phase(dev, gpu)
+    main_server, ds_parity, server_summary, plat, server_frames = server_phase(dev, gpu)
     emit({"phase": "server", **server_summary})
     torch.cuda.empty_cache()
 
@@ -4910,6 +5295,14 @@ def main() -> int:
     # CPU oracle and at full width against one process (mesh_phase)
     main_mesh_small, main_mesh_full, mesh_summary = mesh_phase(dev, gpu)
     emit({"phase": "multiprocess", **mesh_summary})
+    torch.cuda.empty_cache()
+
+    # 3q. the composed server: server.main.Server at 3l's width — its
+    # resource plane, platform refresh, ingest, downsampling tick, REST,
+    # debug, MCP and dfctl — against a CPU Server (composed_phase)
+    main_composed, composed_summary = composed_phase(dev, gpu, server_frames)
+    emit({"phase": "composed", **composed_summary})
+    del server_frames
     torch.cuda.empty_cache()
 
     # 3g. the counter ring and async drain at full width: the 3c stream,
@@ -5087,6 +5480,7 @@ def main() -> int:
             # 3p: summed over the host processes (each counts its own)
             "launches_multiprocess": main_mesh_full[k],
             "launches_multiprocess_test_size": main_mesh_small[k],
+            "launches_composed": main_composed[k],
         })
     # the server path's downsample group-by (fused gather only)
     check(kernels[0]["name"] == "segreduce_gather", "kernels line order")
@@ -5112,6 +5506,7 @@ def main() -> int:
         "launches_lineage": main_lineage[sk_name],
         "launches_multiprocess": main_mesh_full[sk_name],
         "launches_multiprocess_test_size": main_mesh_small[sk_name],
+        "launches_composed": main_composed[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
@@ -5189,6 +5584,15 @@ def main() -> int:
                       "launches_profiled_ingest": [p["kernel_launches"]
                                                    for p in mf["profiled_ingest"]],
                       "handover_ms": ms["handover_ms"], "handoff_frames": ms["handoff_frames"]}))
+    cs = composed_summary
+    print(json.dumps({"metric": "port_composed_server_docs_per_sec", "value": cs["docs_per_s"],
+                      "unit": "docs/s", "gpu": gpu, "docs": cs["docs"], "workers": 4,
+                      "boot_s": cs["boot_s"], "refresh_platform_ms": cs["refresh_platform_ms"],
+                      "downsample_tick_ms": cs["downsample_tick"]["wall_ms"],
+                      "rest_query_ms_median": cs["rest_query_ms"]["median"],
+                      "fetches_per_chunk": cs["fetches_per_chunk"],
+                      "launches": cs["launches"],
+                      "idle_share_downsample_tick": cs["downsample_tick"]["idle_share"]}))
     print(json.dumps({"phase": "profiler_gaps", "gaps": PROFILER_GAPS}))
     print(json.dumps({"gpu": gpu, "kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

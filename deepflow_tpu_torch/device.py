@@ -19,3 +19,26 @@ def resolve_device(device=None) -> torch.device:
             "the plain PyTorch path"
         )
     return dev
+
+
+_DEVICE_ERROR_MARKERS = ("CUDA", "CUBLAS", "cuDNN", "device-side assert")
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """True when `exc`, or an exception it was raised from, came from the
+    CUDA device: torch's accelerator and CUDA error types, or a runtime
+    error whose text names CUDA (a kernel wrapper's failed launch, an
+    out-of-memory). Such an error is sticky — the context is gone and
+    every later call on it fails — so callers end instead of retrying."""
+    types = tuple(t for t in (getattr(torch, "AcceleratorError", None),
+                              getattr(torch.cuda, "CudaError", None),
+                              getattr(torch.cuda, "OutOfMemoryError", None)) if t is not None)
+    seen: set[int] = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if isinstance(exc, types):
+            return True
+        if isinstance(exc, RuntimeError) and any(m in str(exc) for m in _DEVICE_ERROR_MARKERS):
+            return True
+        exc = exc.__cause__ or exc.__context__
+    return False

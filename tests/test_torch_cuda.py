@@ -1195,3 +1195,99 @@ def test_harness_child_reports_the_card(cuda, tmp_path):
             "workdir": str(tmp_path), "out": str(tmp_path / "result.p0.json")}
     (res,) = th.spawn_hosts([spec])
     assert res["device"] == {"name": torch.cuda.get_device_name(0), "stash": ["cuda"]}
+
+
+def _server_frames():
+    """A small METRICS stream from the port's L4Pipeline (CPU), framed
+    64 docs a frame, and a file-reader platform over its endpoints."""
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.datamodel.code import DocumentFlag
+    from deepflow_tpu_torch.ingest.codec import encode_docbatch
+    from deepflow_tpu_torch.ingest.framing import FlowHeader, MessageType, encode_frame
+    from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
+
+    gen = SyntheticFlowGen(num_tuples=40, seed=3)
+    pipe = L4Pipeline(PipelineConfig(window=WindowConfig(capacity=1 << 12), batch_size=512),
+                      device="cpu")
+    docs = []
+    for t in range(1_700_000_000, 1_700_000_004):
+        docs += pipe.ingest(gen.flow_batch(200, t))
+    docs += pipe.drain()
+    msgs = [m for db in docs
+            for m in encode_docbatch(db, flags=int(DocumentFlag.PER_SECOND_METRICS))]
+    frames = [encode_frame(FlowHeader(msg_type=int(MessageType.METRICS), agent_id=1,
+                                      organization_id=1), msgs[i:i + 64])
+              for i in range(0, len(msgs), 64)]
+    p = gen.pop
+    vifs = [dict(epc_id=int(p["epc0"][i]), ips=[int(p["ip0"][i])], pod_id=1 + i,
+                 region_id=1 + (i % 9 == 0), pod_group_id=400 + i % 7, subnet_id=100 + i)
+            for i in range(len(p["ip0"]))]
+    services = [{"uid": f"svc-{g}", "name": f"svc-{g}", "pod_group_id": 400 + g}
+                for g in range(7)]
+    return frames, len(msgs), {"resources": {"pod_service": services}, "vinterfaces": vifs}
+
+
+def _server_run(dev, frames, n, doc, root):
+    import socket
+    import time
+
+    from deepflow_tpu_torch.controller.cloud import FileReaderPlatform
+    from deepflow_tpu_torch.server.main import Server
+    from deepflow_tpu_torch.utils.config import load_config
+
+    cfg, _ = load_config({"receiver": {"tcp_port": 0, "udp_port": 0},
+                          "wire": {"enabled": False}, "region_id": 1,
+                          "storage": {"root": str(root), "writer_flush_s": 0.05}})
+    srv = Server(cfg, exporters=[], device=dev).start()
+    try:
+        srv.add_cloud_source(FileReaderPlatform(doc))
+        srv.tick(now=1_700_000_000)  # the leader reconciles the source
+        srv.tick(now=1_700_000_000)  # and the next tick compiles the platform
+        with socket.create_connection(("127.0.0.1", srv.receiver.tcp_port)) as s:
+            s.sendall(b"".join(frames))
+            deadline = time.time() + 60
+            while True:
+                c = srv.flow_metrics.get_counters()
+                if (c["docs_written"] + c["drop_other_region"] == n
+                        and srv.doc_writer.counters["rows"] == c["docs_written"]):
+                    break
+                assert time.time() < deadline, c
+                time.sleep(0.02)
+        srv.doc_writer.flush()
+        srv.add_datasource(base_table="network_1s", interval="1h")
+        segreduce.reset_launch_counts()
+        did = srv.tick(now=1_700_000_000 + 3 * 3600)
+        launches = segreduce.LAUNCHES["segreduce_gather"]
+        tables = {t: srv.store.scan("flow_metrics", t)
+                  for t in ("network_1s", "network_map_1s", "network_1h")}
+        return srv.flow_metrics.platform_state.device, did, launches, tables, c
+    finally:
+        srv.stop()
+
+
+@pytest.mark.cuda
+def test_server_on_card_equals_cpu_server(cuda, tmp_path):
+    """A test-size Server on the card: the platform state lives on the
+    card, the downsampling tick launches segreduce_gather, and its tables
+    equal a CPU Server's fed the same frames and resources."""
+    frames, n, doc = _server_frames()
+    card = _server_run(cuda, frames, n, doc, tmp_path / "card")
+    host = _server_run(torch.device("cpu"), frames, n, doc, tmp_path / "cpu")
+    assert card[0].type == "cuda" and host[0].type == "cpu"
+    assert card[1]["downsampled"] == host[1]["downsampled"] > 0
+    assert card[2] > 0 and host[2] == 0
+    assert card[4] == host[4] and card[4]["drop_other_region"] > 0
+    for t in host[3]:
+        a, b = card[3][t], host[3][t]
+        keys = sorted(a)
+        oa = np.lexsort([np.unique(a[k], return_inverse=True)[1] for k in keys][::-1])
+        ob = np.lexsort([np.unique(b[k], return_inverse=True)[1] for k in keys][::-1])
+        assert len(oa) == len(ob) > 0, t
+        for k in keys:
+            x, y = a[k][oa], b[k][ob]
+            if y.dtype.kind == "f" and not (np.all(np.abs(y) < 2 ** 24)
+                                             and np.array_equal(y, np.round(y))):
+                np.testing.assert_allclose(x, y, rtol=1e-5, err_msg=f"{t}.{k}")
+            else:
+                assert np.array_equal(x, y), (t, k)

@@ -76,7 +76,14 @@ def test_port_and_chip_smoke_import_no_jax():
                 "querier.promql", "querier.subscribe", "querier.alerts",
                 "parallel.hostproc", "parallel.rebalance", "ingest.handoff", "controller",
                 "controller.rebalance", "fleet", "fleet.frame", "fleet.sink",
-                "fleet.aggregator"):
+                "fleet.aggregator", "utils.config", "utils.agent_config",
+                "integration.trace_imports", "integration.collector", "storage.issu",
+                "storage.monitor", "controller.resources", "controller.recorder",
+                "controller.genesis", "controller.election", "controller.cloud",
+                "controller.tagrecorder", "controller.prom_labels", "controller.trisolaris",
+                "controller.rest", "querier.profile", "server.events", "server.exporters",
+                "server.kafka_exporter", "server.integration", "server.debug", "server.mcp",
+                "server.main", "cli", "device"):
         assert f"deepflow_tpu_torch.{mod}" in result["imported"]
     # the harness chip_smoke spawns reaches the port's multi-process modules
     for mod in ("parallel.topology", "parallel.hostproc", "parallel.rebalance",
