@@ -151,7 +151,9 @@ loudly with a nonzero exit:
    in frames of 256 from 8 agent ids; one doc in 20 moved to the
    internet EPC, one in 20 to an unregistered address) over localhost
    TCP into Receiver → FlowMetricsIngester (4 workers, 8192-doc enrich
-   chunks) → DocStoreWriter → ColumnarStore on disk, enriched against a
+   chunks; the Python decoder and queue, prefer_native=False, so docs/s
+   stays comparable with earlier runs) → DocStoreWriter → ColumnarStore
+   on disk, enriched against a
    platform state at Kubernetes' large-cluster limits (150,000 pods with
    an IPv4, a MAC and a gprocess each, 5,000 nodes, 10,000 pod services;
    the stream's addresses are pods' addresses); then the Downsampler
@@ -272,6 +274,34 @@ loudly with a nonzero exit:
    wall, fetches an ingest, the profiled ingest's launches and idle
    share per host. Any host that exits non-zero (but the scripted
    kill), times out or ran elsewhere than on the card fails the phase.
+3q. The composed server (server/main.py's Server, as `dfctl server` runs
+   it) at 3l's width, counts zeroed before and read after: booted on the
+   card from the reference's default ingester and wire settings (the
+   native C++ decoder and queue, the wire plane on, its framed-TCP
+   listener too), 3l's platform through its resource plane, 3l's frames
+   over TCP with one pod service replaced mid-stream, a 1 h downsampling
+   tick, REST / debug / MCP / `dfctl query`. The phase fails, printing
+   the native build error, unless the card's ingester decoded natively.
+   After the ingest, one SSE `GET /v1/watch?sql=` stream and one
+   framed-TCP stream on the first SQL statement, beside a direct local
+   subscription on it, take 4 WindowClosed batches: every result both
+   streams delivered equals the direct one's under result_to_jsonable.
+   A CPU Server in another process, decoding in Python, is its twin:
+   counters, ticks, every stored row and every query result equal.
+   Printed: docs/s, the decoder, the native build, the wire deliveries,
+   drops and reaps.
+3r. The last slice's modules at test size, counts zeroed before (a) and
+   (b) and read after: (a) the rollup oracle (oracle/numpy_oracle.py)
+   against the card's L4Pipeline and L7Pipeline windows on the reference
+   conformance tests' seeded streams, keys and meters exact; (b) 2,048
+   HTTP sessions as eBPF socket events through EbpfDispatcher and
+   L7Pipeline on the card — app documents equal to the CPU's, all tagged
+   eBPF — and the same rows through L4Pipeline, which emits nothing;
+   (c) a FleetSubscriptionRouter here and one publisher host process
+   (tests/torch_wire_host.py) whose SQL subscription evaluates on the
+   card: every merged envelope equals the host's own subscription
+   oracle, and the host killed and respawned with a higher seq_base is
+   counted lost and recovered, its results not taken for duplicates.
 4. The same L4Pipeline stream at 2^14-row batches on the card and on
    the CPU (plain path): flushed windows and counters must match
    exactly; then again with the sketch plane on (4b): every block lane
@@ -386,6 +416,17 @@ def plane_bytes(cfg, dev) -> dict:
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def native_build_info() -> dict:
+    """The native decoder and queue library (host C++, built at first use
+    into deepflow_tpu_torch/_build/): compiler, build seconds (0.0 when
+    it was already built), or the build error."""
+    from deepflow_tpu_torch import native
+
+    if not native.native_available():
+        return {"error": native.build_error()}
+    return {k: native.build_info[k] for k in ("compiler", "seconds")}
 
 
 def time_ms(fn) -> float:
@@ -2514,8 +2555,11 @@ def run_server_stack(state, frames, n_docs: int, root: str) -> dict:
     store = ColumnarStore(root)
     writer = DocStoreWriter(store)
     tee = TeeWriter(writer)
+    # the Python decoder and queue: 3l's docs/s stays comparable across
+    # slices; 3q runs the native ones (the reference's default)
     ing = FlowMetricsIngester(recv, tee, platform_state=state, n_workers=4,
-                              queue_capacity=1 << 15, enrich_chunk=SERVER_CHUNK)
+                              queue_capacity=1 << 15, enrich_chunk=SERVER_CHUNK,
+                              prefer_native=False)
 
     def settled(total):
         c = ing.get_counters()
@@ -2842,7 +2886,11 @@ def server_phase(dev, gpu: str):
 # compiles it onto the card on its tick, receives 3l's frames over TCP,
 # has one pod service replaced mid-stream, rolls 1 s up to 1 h on a
 # tick, and answers over REST, debug UDP, MCP and `dfctl query`. A
-# Server on the CPU fed the same frames and resources is its twin.
+# Server on the CPU fed the same frames and resources is its twin. The
+# card's Server runs the reference's default config: the native decoder
+# and queue, and the wire plane (with its framed-TCP listener); the twin
+# decodes in Python, so their stored rows also hold one decoder against
+# the other.
 COMPOSED_GROUP = 1  # the pod group whose service is replaced mid-stream
 COMPOSED_NEW_SERVICE = 600_001
 COMPOSED_SQL = SERVER_SQL[:10]  # the statements over network_1s / _1h
@@ -2851,13 +2899,114 @@ COMPOSED_WAIT_S = 300  # a dead decode worker is silent: the wait fails
 # workers take another interpreter lock, not the card run's)
 COMPOSED_TWIN_ARGV = [os.path.abspath(__file__), "--composed-twin"]
 COMPOSED_TWIN_THREADS = 2  # the twin's torch CPU threads
+COMPOSED_WIRE_SQL = COMPOSED_SQL[0]  # the statement the wire streams watch
+COMPOSED_WIRE_EVENTS = 4  # WindowClosed batches published to the streams
 
 
-def composed_config(root: str) -> dict:
+def composed_config(root: str, card: bool) -> dict:
+    """The card's Server: the reference's ingester and wire defaults
+    (native decode, wire plane on) plus the framed-TCP wire listener; the
+    CPU twin's: the Python decoder."""
     return {"receiver": {"tcp_port": 0, "udp_port": 0},
-            "ingester": {"n_decoders": 4, "queue_capacity": 1 << 15},
-            "storage": {"root": root}, "wire": {"enabled": False},
+            "ingester": {"n_decoders": 4, "queue_capacity": 1 << 15,
+                         "prefer_native": card},
+            "storage": {"root": root}, "wire": {"tcp_enabled": card},
             "region_id": SERVER_REGION}
+
+
+def composed_wire(srv) -> dict:
+    """3q's wire streams on COMPOSED_WIRE_SQL: one SSE `GET /v1/watch?sql=`
+    stream off the REST server and one framed-TCP stream off the wire
+    listener, beside a direct local subscription on the same statement;
+    COMPOSED_WIRE_EVENTS WindowClosed batches on network_1s. Every result
+    each stream delivered equals, under result_to_jsonable, the one the
+    direct subscription delivered."""
+    import socket
+    import urllib.parse
+    import urllib.request
+
+    from deepflow_tpu_torch.ingest.framing import FrameReassembler
+    from deepflow_tpu_torch.querier.events import WindowClosed
+    from deepflow_tpu_torch.wire import (PushFrame, decode_push_frame, encode_push_frame,
+                                         result_to_jsonable)
+
+    def jn(obj):
+        return json.loads(json.dumps(obj, default=str))
+
+    direct, sse, tcp, eval_ms = [], [], [], []
+    stop = threading.Event()
+    sub, w = srv.subscriptions.subscribe_sql(
+        COMPOSED_WIRE_SQL, callback=lambda r, _s: direct.append(jn(result_to_jsonable(r))))
+
+    def sse_reader():
+        url = (f"http://127.0.0.1:{srv.rest.port}/v1/watch?"
+               + urllib.parse.urlencode({"sql": COMPOSED_WIRE_SQL, "heartbeat_s": 0.2,
+                                         "maxlen": 1024}))
+        with urllib.request.urlopen(url, timeout=120) as r:
+            for raw in r:
+                if raw.startswith(b"data: "):
+                    sse.append(json.loads(raw[6:]))
+                if stop.is_set():
+                    return
+
+    sock = socket.create_connection(srv.wire_tcp.endpoint, timeout=120)
+
+    def tcp_reader():
+        reasm = FrameReassembler()
+        sock.sendall(encode_push_frame(PushFrame(kind="sub", body={
+            "sql": COMPOSED_WIRE_SQL, "heartbeat_s": 0.2, "maxlen": 1024})))
+        while not stop.is_set():
+            chunk = sock.recv(1 << 20)
+            if not chunk:
+                return
+            for h, b in reasm.feed(chunk):
+                f = decode_push_frame(h, b)
+                if f.kind == "result":
+                    tcp.append(f.body["payload"])
+
+    readers = [threading.Thread(target=fn, daemon=True) for fn in (sse_reader, tcp_reader)]
+    for t in readers:
+        t.start()
+    hub = srv.wire
+    try:
+        deadline = time.time() + 60
+        while hub.get_counters()["connections_open"] < 2:
+            check(time.time() < deadline, f"3q: the wire streams did not open {hub.get_counters()}")
+            time.sleep(0.01)
+        for k in range(COMPOSED_WIRE_EVENTS):
+            n = len(direct)
+            t = time.perf_counter()
+            srv.event_bus.publish(WindowClosed("flow_metrics", "network_1s", T0 + k))
+            check(len(direct) > n, "3q: a WindowClosed batch did not evaluate the statement")
+            eval_ms.append((time.perf_counter() - t) * 1e3)
+        n = len(direct)  # a late store event may add one more later, to all three
+        deadline = time.time() + 120
+        while len(sse) < n or len(tcp) < n:
+            check(time.time() < deadline, f"3q: the wire streams delivered {len(sse)} and "
+                                          f"{len(tcp)} of {n} results")
+            time.sleep(0.01)
+        check(sse[:n] == direct[:n] and tcp[:n] == direct[:n],
+              "3q: a wire stream delivered another result than the direct subscription")
+        check(direct[-1]["rows"] and direct[-1]["columns"] == ["c", "b", "m", "mn"],
+              f"3q: the watched statement returned {direct[-1]}")
+        sock.sendall(encode_push_frame(PushFrame(kind="unsub")))
+    finally:
+        stop.set()
+        for t in readers:
+            t.join(timeout=30)
+        sock.close()
+        sub.unwatch(w)
+    deadline = time.time() + 30
+    while hub.get_counters()["connections_open"]:
+        check(time.time() < deadline, f"3q: the wire streams did not close {hub.get_counters()}")
+        time.sleep(0.02)
+    c = hub.get_counters()
+    check(c["deliveries"] >= 2 * n and c["drops"] == 0 and c["open_errors"] == 0,
+          f"3q: wire counters {c} for {n} results a stream")
+    return {"sql": COMPOSED_WIRE_SQL, "results_per_stream": n,
+            "deliveries": c["deliveries"], "drops": c["drops"], "reaps": c["reaps"],
+            "sse_connections": c["sse_connections"], "tcp_connections": c["tcp_connections"],
+            "eval_ms": eval_ms, "rows": len(direct[-1]["rows"])}
 
 
 def composed_register(srv, rows) -> None:
@@ -2922,10 +3071,16 @@ def composed_run(dev, frames, n_docs: int, rows, root: str) -> dict:
         if card:
             torch.cuda.synchronize()
 
-    cfg, unknown = load_config(composed_config(root))
+    cfg, unknown = load_config(composed_config(root, card))
     check(unknown == [], f"3q: unknown config keys {unknown}")
     t0 = time.perf_counter()
     srv = Server(cfg, exporters=[], device=dev).start()
+    from deepflow_tpu_torch import native
+
+    # a failed native build must not hide behind the Python fallback
+    check(srv.flow_metrics._use_native == card and (srv.wire_tcp is not None) == card,
+          f"3q: the {dev.type} server decodes {'natively' if srv.flow_metrics._use_native else 'in Python'}"
+          f" (native build: {native.build_error()}), wire listener {srv.wire_tcp}")
     refresh_ms = []
     refresh = srv.refresh_platform
 
@@ -2961,6 +3116,8 @@ def composed_run(dev, frames, n_docs: int, rows, root: str) -> dict:
         c = srv.flow_metrics.get_counters()
         check(c["decode_errors"] == 0 and c["docs_in"] == n_docs and c["drop_other_region"] > 0
               and c["enrich_fetches"] == c["enrich_chunks"] > 0, f"3q: ingester counters {c}")
+        if card:
+            out["wire"] = composed_wire(srv)
         srv.add_datasource(base_table="network_1s", interval="1h")
         did = {}
         ds_now = T0 + 3 * 3600
@@ -3030,6 +3187,7 @@ def composed_run(dev, frames, n_docs: int, rows, root: str) -> dict:
         out.update({
             "ticks": ticks, "counters": c, "refresh_ms": refresh_ms,
             "docs_per_s": n_docs / (dt_first + dt_second),
+            "decoder": "native" if srv.flow_metrics._use_native else "python",
             "ingest_s": [dt_first, dt_second],
             "rest_query_ms": {"median": statistics.median(rest_ms), "each": rest_ms,
                               "cached_median": statistics.median(cached_ms)},
@@ -3150,6 +3308,8 @@ def composed_phase(dev, gpu: str, stream) -> tuple[dict, dict]:
         # chunks, depends on the workers' timing)
         same = ("frames_in", "docs_in", "docs_written", "decode_errors", "drop_other_region",
                 "drop_second_write")
+        check(card["decoder"] == "native" and host["decoder"] == "python",
+              f"3q: decoders card {card['decoder']}, CPU twin {host['decoder']}")
         check({k: card["counters"][k] for k in same} == {k: host["counters"][k] for k in same}
               and json.loads(json.dumps(card["ticks"])) == host["ticks"]
               and card["changed_service_rows"] == host["changed_service_rows"],
@@ -3193,12 +3353,298 @@ def composed_phase(dev, gpu: str, stream) -> tuple[dict, dict]:
         "counters": card["counters"], "changed_service_rows": card["changed_service_rows"],
         "tables": card["tables"], "restart_tables": card["restart_tables"],
         "compared_rows": compared, "launches": launches,
-        "cpu_twin": {"docs_per_s": host["docs_per_s"], "boot_s": host["boot_s"],
+        "decoder": card["decoder"], "native_build": native_build_info(),
+        "wire": card["wire"],
+        "cpu_twin": {"docs_per_s": host["docs_per_s"], "decoder": host["decoder"],
+                     "boot_s": host["boot_s"],
                      "refresh_platform_ms": host["refresh_ms"], "wait_s": twin_wait_s,
                      "torch_threads": COMPOSED_TWIN_THREADS},
         "phase_s": time.perf_counter() - t_phase,
     }
     return launches, summary
+
+
+# phase 3r: the modules of the last slice, at test size. (a) The rollup
+# oracle (oracle/numpy_oracle.py) against the card's L4Pipeline and
+# L7Pipeline windows on the reference conformance tests' seeded streams
+# (tests/test_pipeline_conformance.py::test_multi_window_replay and
+# tests/test_l7_pipeline.py::test_l7_synthetic_conformance). (b) eBPF
+# socket events (agent/ebpf_bridge.py's EbpfDispatcher over the L7
+# engine) through L7Pipeline on the card: app documents equal to the
+# CPU's, and the same rows through L4Pipeline give no document. (c) The
+# fleet wire pin: a FleetSubscriptionRouter here, one publisher host
+# process (tests/torch_wire_host.py) whose SQL subscription evaluates on
+# cuda:0; the router's merged envelopes equal the host's own oracle, and
+# a killed host respawned with a higher seq_base is not eaten by dedup.
+REMAINING_EBPF_SESSIONS = 2048
+REMAINING_WIRE_SQL = "SELECT Sum(value) AS v, Count() AS c FROM deepflow_system WHERE metric = 'm'"
+REMAINING_WIRE_STEPS = (4, 2)  # the host's steps, then its respawn's
+REMAINING_WIRE_SEQ_BASE = 1000  # the respawned host's sequence floor
+REMAINING_WIRE_WAIT_S = 120
+REMAINING_WIRE_DEVICE = "cuda:0"  # the publisher host's subscriptions
+
+
+def oracle_keys(doc_batches, meter_schema) -> dict:
+    """{(window start, key tuple): meter row (int64)} of DocBatches."""
+    from deepflow_tpu_torch.datamodel.schema import TAG_SCHEMA
+
+    idx = [TAG_SCHEMA.index(f.name) for f in TAG_SCHEMA.fields if f.key]
+    out = {}
+    for db in doc_batches:
+        for i in range(db.size):
+            key = (int(db.timestamp[i]),) + tuple(int(db.tags[i, j]) for j in idx)
+            check(key not in out, f"3r: key emitted twice {key}")
+            row = np.asarray(db.meters[i], np.float64)
+            check(np.all(row == np.round(row)) and np.all(np.abs(row) < 2 ** 24),
+                  "3r: a meter is not an integer below 2^24")
+            out[key] = row.astype(np.int64)
+    return out
+
+
+def check_against_oracle(emitted: dict, oracle: dict, meter_schema, what: str) -> int:
+    from deepflow_tpu_torch.datamodel.schema import TAG_SCHEMA
+
+    names = [f.name for f in TAG_SCHEMA.fields if f.key]
+    want = {(d.window,) + tuple(d.tag[k] for k in names): d.meter for d in oracle.values()}
+    check(set(emitted) == set(want) and len(want) > 0,
+          f"3r: {what} keys: {len(set(emitted) - set(want))} only on the card, "
+          f"{len(set(want) - set(emitted))} only in the oracle")
+    for key, row in emitted.items():
+        check(all(row[i] == want[key][f.name] for i, f in enumerate(meter_schema.fields)),
+              f"3r: {what} meters differ from the oracle at {key}")
+    return len(want)
+
+
+def oracle_on_card(dev) -> dict:
+    """(a): the conformance streams through the card's pipelines against
+    the port's oracle, keys and meters exact."""
+    from deepflow_tpu_torch.aggregator.fanout import FanoutConfig
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, L7Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.datamodel.batch import FlowBatch
+    from deepflow_tpu_torch.datamodel.schema import APP_METER, FLOW_METER
+    from deepflow_tpu_torch.ingest.replay import SyntheticAppGen, SyntheticFlowGen
+    from deepflow_tpu_torch.oracle import oracle_l4_rollup, oracle_l7_rollup
+
+    def run(pipe_cls, records_per_t, schema):
+        pipe = pipe_cls(PipelineConfig(window=WindowConfig(interval=1, delay=2, capacity=1 << 14),
+                                       batch_size=512), device=dev)
+        out = []
+        for recs in records_per_t:
+            out += pipe.ingest(FlowBatch.from_records(recs, schema))
+        return oracle_keys(out + pipe.drain(), schema)
+
+    gen = SyntheticFlowGen(num_tuples=300, seed=2)
+    l4 = [gen.records(n, t) for t, n in [(t, 200) for t in range(2000, 2006)] + [(2010, 1)]]
+    gen7 = SyntheticAppGen(num_services=16, endpoints_per_service=4, seed=3)
+    l7 = [gen7.records(200, t) for t in range(T0, T0 + 5)]
+    return {
+        "l4_docs": check_against_oracle(
+            run(L4Pipeline, l4, FLOW_METER),
+            oracle_l4_rollup([r for rs in l4 for r in rs], FanoutConfig()), FLOW_METER, "L4"),
+        "l7_docs": check_against_oracle(
+            run(L7Pipeline, l7, APP_METER),
+            oracle_l7_rollup([r for rs in l7 for r in rs], FanoutConfig()), APP_METER, "L7"),
+    }
+
+
+def ebpf_events(n: int) -> list:
+    """n HTTP sessions as socket events: a request (egress) and its
+    response (ingress) each, 1 in 5 answered 503, over 8 seconds."""
+    from deepflow_tpu_torch.agent.ebpf_bridge import SocketDataEvent
+
+    out = []
+    for k in range(n):
+        t_us = (T0 + k * 8 // n) * 10 ** 6 + k
+        kw = dict(pid=7 + k % 3, ip_src=0x0A000001 + k % 50, ip_dst=0x0A100000 + k % 7,
+                  port_src=30000 + k, port_dst=80, protocol=6)
+        out.append(SocketDataEvent(
+            **kw, direction=0, timestamp_us=t_us, cap_seq=2 * k,
+            payload=f"GET /api/{k % 12} HTTP/1.1\r\nHost: svc-{k % 7}\r\n\r\n".encode()))
+        out.append(SocketDataEvent(
+            **kw, direction=1, timestamp_us=t_us + 300 + 7 * (k % 100), cap_seq=2 * k + 1,
+            payload=b"HTTP/1.1 503 Busy\r\n\r\n" if k % 5 == 4 else b"HTTP/1.1 200 OK\r\n\r\n"))
+    return out
+
+
+def ebpf_on_card(dev) -> dict:
+    """(b): the dispatcher's sessions through L7Pipeline on the card and
+    on the CPU (equal documents, every one tagged eBPF), and the same
+    rows through L4Pipeline on the card (no document)."""
+    from deepflow_tpu_torch.agent.ebpf_bridge import EbpfDispatcher
+    from deepflow_tpu_torch.agent.l7.engine import L7Engine
+    from deepflow_tpu_torch.aggregator.pipeline import L4Pipeline, L7Pipeline, PipelineConfig
+    from deepflow_tpu_torch.aggregator.window import WindowConfig
+    from deepflow_tpu_torch.datamodel.batch import FlowBatch
+    from deepflow_tpu_torch.datamodel.code import SignalSource
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+
+    disp = EbpfDispatcher(L7Engine())
+    t = time.perf_counter()
+    logs, app = disp.process(ebpf_events(REMAINING_EBPF_SESSIONS))
+    dispatch_s = time.perf_counter() - t
+    check(logs.size == REMAINING_EBPF_SESSIONS and disp.counters["sessions_out"] == logs.size,
+          f"3r: the dispatcher paired {logs.size} of {REMAINING_EBPF_SESSIONS} sessions")
+    cfg = PipelineConfig(window=WindowConfig(capacity=1 << 14), batch_size=1 << 13)
+
+    def run(pipe_cls, device, batch):
+        pipe = pipe_cls(cfg, device=device)
+        return pipe.ingest(batch) + pipe.drain()
+
+    card, host = run(L7Pipeline, dev, app), run(L7Pipeline, torch.device("cpu"), app)
+    check(same_docs(card, host), "3r: eBPF app documents differ card vs CPU")
+    docs = sum(d.size for d in card)
+    sig = TAG_SCHEMA.index("signal_source")
+    check(docs > 0 and all((d.tags[:, sig] == int(SignalSource.EBPF)).all() for d in card),
+          "3r: the eBPF app documents are not all tagged eBPF")
+    l4_rows = FlowBatch(tags=app.tags, valid=app.valid,
+                        meters=np.zeros((len(app.valid), FLOW_METER.num_fields), np.float32))
+    l4 = run(L4Pipeline, dev, l4_rows)
+    check(sum(d.size for d in l4) == 0, "3r: eBPF rows reached the L4 plane")
+    return {"sessions": logs.size, "events": 2 * REMAINING_EBPF_SESSIONS,
+            "dispatch_s": dispatch_s, "app_docs": docs, "l4_docs": 0}
+
+
+def spawn_wire_host(spec: dict, log_path: str) -> subprocess.Popen:
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    log = open(log_path, "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, os.path.join(here, "tests", "torch_wire_host.py"), json.dumps(spec)],
+            cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+
+
+def wire_host_record(path: str, proc, log_path: str) -> dict:
+    deadline = time.time() + REMAINING_WIRE_WAIT_S
+    while True:
+        if os.path.exists(path):
+            try:
+                rec = json.load(open(path))
+            except ValueError:  # the host rewrites it atomically; a race at most
+                rec = {}
+            if rec.get("flushed"):
+                return rec
+        check(proc.poll() is None and time.time() < deadline,
+              f"3r: the wire host ended or hung: {open(log_path).read()[-3000:]}")
+        time.sleep(0.05)
+
+
+def check_envelopes(envelopes, oracle: list, seq_base: int, what: str) -> int:
+    """Every per-host state the router fanned out equals the host's own
+    subscription oracle at that seq."""
+    checked = 0
+    for env in envelopes:
+        hs = env["hosts"]["hA"]
+        i = hs["seq"] - seq_base - 1
+        check(0 <= i < len(oracle), f"3r: {what} seq {hs['seq']} outside the oracle")
+        check(json.loads(json.dumps(hs["series"])) == oracle[i]["series"]
+              and hs["now"] == oracle[i]["now"], f"3r: {what} envelope {i} differs from the oracle")
+        checked += 1
+    check(checked > 0, f"3r: no {what} envelope to compare")
+    return checked
+
+
+def wire_fleet_pin(work: str) -> dict:
+    """(c): the router, one host on cuda:0, a kill and a respawn."""
+    from deepflow_tpu_torch.wire import FleetSubscriptionRouter
+
+    router = FleetSubscriptionRouter(name="chip_smoke").start()
+    procs, envelopes = [], []
+    try:
+        entry, w = router.watch({"kind": "sql", "query": REMAINING_WIRE_SQL})
+
+        def drain():
+            while (env := w.poll()) is not None:
+                envelopes.append(env)
+
+        def wait_for(cond, what):
+            deadline = time.time() + REMAINING_WIRE_WAIT_S
+            while True:
+                drain()
+                if cond():
+                    return
+                check(time.time() < deadline and all(p.poll() is None for p in procs[-1:]),
+                      f"3r: waited for {what}; router {router.get_counters()}")
+                time.sleep(0.02)
+
+        def spec(seq_base, t0, steps, base):
+            tag = f"hA.{seq_base}"
+            return {"host": "hA", "router": list(router.endpoint), "seq_base": seq_base,
+                    "t0": t0, "steps": steps, "value_base": base, "step_sleep_s": 0.05,
+                    "alert_at": -1, "device": REMAINING_WIRE_DEVICE,
+                    "out": os.path.join(work, f"{tag}.json"),
+                    "stop_file": os.path.join(work, f"stop.{tag}")}
+
+        first = spec(0, T0, REMAINING_WIRE_STEPS[0], 100.0)
+        t = time.perf_counter()
+        procs.append(spawn_wire_host(first, os.path.join(work, "host0.log")))
+        rec0 = wire_host_record(first["out"], procs[0], os.path.join(work, "host0.log"))
+        wait_for(lambda: any(e.get("type") == "result"
+                             and e["hosts"]["hA"]["seq"] == REMAINING_WIRE_STEPS[0]
+                             for e in envelopes), "the host's last result")
+        first_s = time.perf_counter() - t
+        check(rec0["evals"] == rec0["event_batches"] == REMAINING_WIRE_STEPS[0]
+              and rec0["publisher"]["shed_frames"] == 0, f"3r: host record {rec0}")
+        gen0 = [e for e in envelopes if e.get("type") == "result"]
+        n0 = check_envelopes(gen0, rec0["oracle"], 0, "first host")
+        procs[0].kill()
+        procs[0].wait(timeout=30)
+        wait_for(lambda: any(e.get("type") == "staleness" for e in envelopes),
+                 "the staleness notice")
+        second = spec(REMAINING_WIRE_SEQ_BASE, T0 + 100, REMAINING_WIRE_STEPS[1], 300.0)
+        procs.append(spawn_wire_host(second, os.path.join(work, "host1.log")))
+        last = REMAINING_WIRE_SEQ_BASE + REMAINING_WIRE_STEPS[1]
+        rec1 = wire_host_record(second["out"], procs[1], os.path.join(work, "host1.log"))
+        wait_for(lambda: any(e.get("type") == "result" and e["hosts"]["hA"]["seq"] == last
+                             and not e["hosts"]["hA"]["stale"] for e in envelopes),
+                 "the respawned host's results")
+        gen1 = [e for e in envelopes if e.get("type") == "result"
+                and e["hosts"]["hA"]["seq"] > REMAINING_WIRE_SEQ_BASE]
+        n1 = check_envelopes(gen1, rec1["oracle"], REMAINING_WIRE_SEQ_BASE, "respawned host")
+        c = router.get_counters()
+        check(c["hosts_lost"] == 1 and c["hosts_recovered"] == 1 and c["dup_results"] == 0
+              and entry.dup_results == 0 and n1 == REMAINING_WIRE_STEPS[1],
+              f"3r: router counters {c}, respawned envelopes {n1}")
+        open(second["stop_file"], "w").close()
+        out, _ = procs[1].communicate(timeout=60)
+        check(procs[1].returncode == 0, f"3r: the respawned host ended with {procs[1].returncode}")
+        return {"envelopes": len(envelopes), "checked": n0 + n1, "first_host_s": first_s,
+                "router": {k: c[k] for k in ("results_rx", "merged_evals", "dup_results",
+                                             "hosts_lost", "hosts_recovered",
+                                             "staleness_notices")}}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        router.stop()
+
+
+def remaining_phase(dev, gpu: str) -> tuple[dict, dict]:
+    """Phase 3r. Counts zeroed before (a) and (b) and read after them;
+    (c)'s host counts its own launches in its own process. Returns
+    (launches, summary)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    reset_all_launch_counts()
+    oracle = oracle_on_card(dev)
+    ebpf = ebpf_on_card(dev)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    check(launches["segreduce_gather"] > 0 and launches["segreduce_sorted"] == 0
+          and launches["sketch_fused"] == 0, f"3r launches {launches}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_3r_")
+    try:
+        wire = wire_fleet_pin(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, {"gpu": gpu, "oracle": oracle, "ebpf": ebpf, "wire_fleet": wire,
+                      "launches": launches, "phase_s": time.perf_counter() - t_phase}
 
 
 # phase 3m: the agent deployment (BASELINE configs 1 and 2: a single
@@ -5085,9 +5531,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     from deepflow_tpu_torch.utils.provenance import bench_provenance
 
+    native_build = native_build_info()  # host C++: 3q's default decoder and queue
     emit({"phase": "device", "nvidia_smi": gpu, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": round(build_s, 3),
-          "build_seconds": build.build_seconds, "provenance": bench_provenance()})
+          "build_seconds": build.build_seconds, "native_build": native_build,
+          "provenance": bench_provenance()})
     sk_cfg = sketch_config()
 
     # 2. kernel parity at the main-path shapes
@@ -5305,6 +5753,12 @@ def main() -> int:
     del server_frames
     torch.cuda.empty_cache()
 
+    # 3r. the last slice's modules at test size: the rollup oracle against
+    # the card's pipelines, eBPF sessions through them, and the fleet wire
+    # pin with a publisher host on the card (remaining_phase)
+    main_remaining, remaining_summary = remaining_phase(dev, gpu)
+    emit({"phase": "remaining", **remaining_summary})
+
     # 3g. the counter ring and async drain at full width: the 3c stream,
     # 3 batches a second for T0 … T0+5, staged on the card once and
     # ingested by three pipelines in turn
@@ -5481,6 +5935,7 @@ def main() -> int:
             "launches_multiprocess": main_mesh_full[k],
             "launches_multiprocess_test_size": main_mesh_small[k],
             "launches_composed": main_composed[k],
+            "launches_remaining": main_remaining[k],
         })
     # the server path's downsample group-by (fused gather only)
     check(kernels[0]["name"] == "segreduce_gather", "kernels line order")
@@ -5507,6 +5962,7 @@ def main() -> int:
         "launches_multiprocess": main_mesh_full[sk_name],
         "launches_multiprocess_test_size": main_mesh_small[sk_name],
         "launches_composed": main_composed[sk_name],
+        "launches_remaining": main_remaining[sk_name],
         "parity": {"ok": sketch_res["parity_ok"], "hll_cms": "exact",
                    "topk_lanes": "exact", "against": "sketch_update_fused_plain"},
         **{k: sketch_res[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",

@@ -158,7 +158,7 @@ class FlowLogIngester:
         self._threads = []
         self.queues = {}
         for mt in (MessageType.TAGGEDFLOW, MessageType.PROTOCOLLOG):
-            qs = [new_queue(queue_capacity) for _ in range(n_workers)]
+            qs = [new_queue(queue_capacity, prefer_native=False) for _ in range(n_workers)]
             receiver.register_handler(mt, qs)
             self.queues[mt] = qs
             for q in qs:

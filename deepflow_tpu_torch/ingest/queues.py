@@ -4,8 +4,12 @@ deepflow_tpu/ingest/queues.py).
 Mirrors the reference's `OverwriteQueue` (libs/queue/queue.go:43-260):
 fixed capacity, *overwrites oldest on overflow* (backpressure sheds the
 oldest data, never blocks the producer), blocking batched `gets` with a
-timeout on the consumer side. The native C++ ring stays with the
-reference: `new_queue` always builds the Python queue.
+timeout on the consumer side.
+
+Two interchangeable implementations: the C++ ring in
+deepflow_tpu_torch/native/src/queue.cc (used when the shared object
+builds) and a Python fallback with identical semantics. `new_queue`
+picks automatically.
 """
 
 from __future__ import annotations
@@ -13,9 +17,11 @@ from __future__ import annotations
 import collections
 import threading
 
+from .. import native
+
 
 class PyOverwriteQueue:
-    """Fixed-capacity frame queue that overwrites its oldest item."""
+    """Python twin of native.OverwriteQueue (same API and semantics)."""
 
     def __init__(self, capacity: int):
         if capacity <= 0:
@@ -77,8 +83,10 @@ class PyOverwriteQueue:
                     "overwritten": self._overwritten, "closed": int(self._closed)}
 
 
-def new_queue(capacity: int) -> PyOverwriteQueue:
-    """OverwriteQueue factory (the port has no native ring)."""
+def new_queue(capacity: int, prefer_native: bool = True):
+    """OverwriteQueue factory: native C++ ring when built, else Python."""
+    if prefer_native and native.native_available():
+        return native.OverwriteQueue(capacity)
     return PyOverwriteQueue(capacity)
 
 

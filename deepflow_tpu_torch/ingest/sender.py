@@ -48,6 +48,7 @@ class UniformSender:
         batch_bytes: int = 1 << 17,
         flush_interval: float = 0.2,
         queue_capacity: int = 1 << 14,
+        prefer_native_queue: bool = True,
         compression: int | str = ENCODER_RAW,
     ):
         if not servers:
@@ -61,7 +62,7 @@ class UniformSender:
         self.organization_id = organization_id
         self.batch_bytes = min(batch_bytes, MAX_FRAME_SIZE // 2)
         self.flush_interval = flush_interval
-        self._q = new_queue(queue_capacity)
+        self._q = new_queue(queue_capacity, prefer_native=prefer_native_queue)
         self._sock: socket.socket | None = None
         self._server_idx = 0
         self._running = True

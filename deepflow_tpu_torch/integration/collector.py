@@ -63,6 +63,7 @@ class IntegrationCollector:
                 mt,
                 agent_id=agent_id,
                 organization_id=organization_id,
+                prefer_native_queue=False,
             )
             for mt in set(_ROUTES.values())
         }

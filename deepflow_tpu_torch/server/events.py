@@ -152,7 +152,7 @@ class EventIngester:
         self._threads = []
         self.queues = {}
         for mt in self._TYPES:
-            q = new_queue(queue_capacity)
+            q = new_queue(queue_capacity, prefer_native=False)
             receiver.register_handler(mt, [q])
             self.queues[mt] = q
             t = threading.Thread(target=self._worker, args=(mt, q), daemon=True)

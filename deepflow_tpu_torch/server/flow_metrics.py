@@ -4,9 +4,8 @@ of deepflow_tpu/server/flow_metrics.py).
 The re-composition of `server/ingester/flow_metrics/flow_metrics.go:50`
 + `unmarshaller/unmarshaller.go:220`: the receiver fans METRICS frames
 into N overwrite queues; each unmarshaller worker drains its queue in
-batches, decodes pb Documents columnar (the Python decoder; the JAX
-package's native C++ decoder and queue are not bound here), runs the
-whole batch through the device enrichment (enrich/platform.py — the
+batches, decodes pb Documents columnar (native C++ decoder when built,
+Python twin otherwise), runs the whole batch through the device enrichment (enrich/platform.py — the
 DocumentExpand analog) in fixed-size chunks, and hands enriched column
 batches to the writer.
 
@@ -40,6 +39,7 @@ from ..ingest.framing import HEADER_LEN, FlowHeader, MessageType, split_message_
 from ..ingest.queues import new_queue
 from ..ingest.receiver import Receiver
 from ..ops.u32 import to_i32_bits, to_numpy_u32
+from .. import native
 
 
 class WorkerError(RuntimeError):
@@ -108,13 +108,15 @@ class FlowMetricsIngester:
         batch_size: int = 256,
         disable_second_write: bool = False,
         enrich_chunk: int = 8192,
+        prefer_native: bool = True,
     ):
         self.writer = writer
         self.platform_state = platform_state
         self.batch_size = batch_size
         self.enrich_chunk = enrich_chunk
         self.disable_second_write = disable_second_write
-        self.queues = [new_queue(queue_capacity) for _ in range(n_workers)]
+        self._use_native = prefer_native and native.native_available()
+        self.queues = [new_queue(queue_capacity, prefer_native=prefer_native) for _ in range(n_workers)]
         receiver.register_handler(MessageType.METRICS, self.queues)
         self.counters = {
             "frames_in": 0,
@@ -175,7 +177,7 @@ class FlowMetricsIngester:
                 self._errors.append((threading.current_thread().name, exc))
 
     def _worker(self, q) -> None:
-        decoder = DocumentDecoder()
+        decoder = native.NativeDocumentDecoder() if self._use_native else DocumentDecoder()
         while self._running:
             frames = q.gets(self.batch_size, timeout_ms=100)
             if not frames:

@@ -124,7 +124,7 @@ class IntegrationIngester:
         self._threads = []
         self.queues = {}
         for mt in self._TYPES:
-            q = new_queue(queue_capacity)
+            q = new_queue(queue_capacity, prefer_native=False)
             receiver.register_handler(mt, [q])
             self.queues[mt] = q
             t = threading.Thread(target=self._worker, args=(mt, q), daemon=True)

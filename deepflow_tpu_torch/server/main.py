@@ -12,8 +12,7 @@ time deterministically; `stop()` tears down in reverse.
 Port copy of deepflow_tpu/server/main.py. The server's device work —
 the enrichment platform state, the downsampler's rollups and the SQL,
 subscription and alert reductions — runs on `device` (default CUDA;
-raises without it). The wire delivery plane is not in the port yet:
-`start()` refuses `wire.enabled` before it binds a port.
+raises without it).
 """
 
 from __future__ import annotations
@@ -94,11 +93,6 @@ class Server:
 
     def start(self) -> "Server":
         cfg = self.config
-        if cfg.wire.enabled:
-            raise NotImplementedError(
-                "the wire delivery plane (deepflow_tpu/wire) is not ported to "
-                "deepflow_tpu_torch yet; set wire.enabled: false in the server config"
-            )
         self.store = ColumnarStore(cfg.storage.root)
         # in-service schema upgrade before anything touches tables
         # (ckissu.go:51 boot ordering)
@@ -204,7 +198,8 @@ class Server:
             queue_capacity=cfg.ingester.queue_capacity,
             batch_size=cfg.ingester.batch_size,
             disable_second_write=cfg.ingester.disable_second_write,
-        )  # ingester.prefer_native: the port decodes in Python
+            prefer_native=cfg.ingester.prefer_native,
+        )
         self.flow_log = FlowLogIngester(
             self.receiver,
             self.store,
@@ -252,12 +247,32 @@ class Server:
                 bus=self.event_bus,
                 expiry_s=cfg.fleet.expiry_s,
             ).start()
-        # wire delivery plane: not in the port yet (start() refused
-        # wire.enabled above); /v1/watch and /v1/wire answer as a
-        # server without it does
+        # wire delivery plane: the SSE lane off the REST server maps
+        # each /v1/watch connection onto a bounded watcher queue; the
+        # optional router turns this process into the fleet fan-out
+        # aggregator (pipeline hosts' WirePublishers dial in), and the
+        # optional TCP listener serves the framed variant
         self.wire = None
         self.wire_router = None
         self.wire_tcp = None
+        if cfg.wire.enabled:
+            from ..wire import FleetSubscriptionRouter, WireHub, WireListener
+
+            if cfg.wire.router_enabled:
+                self.wire_router = FleetSubscriptionRouter(
+                    host=cfg.wire.router_host, port=cfg.wire.router_port,
+                ).start()
+            self.wire = WireHub(
+                self.subscriptions, alerts=self.alerts,
+                router=self.wire_router, bus=self.event_bus,
+                lease_s=cfg.wire.lease_s, maxlen=cfg.wire.queue_maxlen,
+                name="server",
+            )
+            if cfg.wire.tcp_enabled:
+                self.wire_tcp = WireListener(
+                    self.wire, host=cfg.wire.tcp_host,
+                    port=cfg.wire.tcp_port,
+                ).start()
         self.mcp = MCPServer(self)  # LLM tool surface (mcp.go seat)
         self.rest = RestServer(self)  # controller/querier REST + pprof seat
         if self.election:

@@ -1291,3 +1291,36 @@ def test_server_on_card_equals_cpu_server(cuda, tmp_path):
                 np.testing.assert_allclose(x, y, rtol=1e-5, err_msg=f"{t}.{k}")
             else:
                 assert np.array_equal(x, y), (t, k)
+
+
+@pytest.mark.cuda
+def test_native_decode_then_card_enrichment_equals_python_path(cuda):
+    """Documents decoded by the native library and enriched on the card
+    equal the Python decoder's batches enriched on the CPU."""
+    from deepflow_tpu_torch import convert, native
+    from deepflow_tpu_torch.datamodel.code import MeterId
+    from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
+    from deepflow_tpu_torch.ingest.codec import DocumentDecoder, encode_document
+    from deepflow_tpu_torch.server.flow_metrics import enrich_batch
+
+    assert native.native_available(), native.build_error()
+    rng = np.random.default_rng(8)
+    tags = _doc_tags(7, 5000)
+    tags[:, TAG_SCHEMA.index("meter_id")] = int(MeterId.FLOW)
+    meters = rng.integers(0, 1000, (5000, FLOW_METER.num_fields)).astype(np.float32)
+    msgs = [encode_document(1_700_000_000 + i % 5, tags[i], meters[i], 0) for i in range(5000)]
+    msgs[::97] = [b"\x0a\xff"] * len(msgs[::97])  # corrupt ones, counted by both
+    nat, py = native.NativeDocumentDecoder(), DocumentDecoder()
+    a, b = nat.decode(msgs)[int(MeterId.FLOW)], py.decode(msgs)[int(MeterId.FLOW)]
+    assert nat.decode_errors == py.decode_errors == len(msgs[::97])
+    for k in ("tags", "meters", "timestamp", "flags"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+    lanes = _platform_lanes(3)
+    valid = np.ones(a.tags.shape[0], bool)
+    card = enrich_batch(convert.platform_state_from_numpy(lanes, cuda), a.tags, valid, 2048)
+    host = enrich_batch(convert.platform_state_from_numpy(lanes, "cpu"), b.tags, valid, 2048)
+    for side in (0, 1):
+        assert sorted(card[side]) == sorted(host[side])
+        for k in host[side]:
+            assert np.array_equal(card[side][k], host[side][k]), (side, k)
+    assert np.array_equal(card[2], host[2]) and card[3] == host[3] > 0 and card[4] == host[4]

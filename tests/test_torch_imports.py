@@ -1,9 +1,10 @@
 """The port imports neither JAX nor the JAX package.
 
 A fresh interpreter imports every module of deepflow_tpu_torch,
-chip_smoke.py and tests/torch_mesh_harness.py with every module the
-harness imports (it imports them inside its functions, so they are
-found by walking its source), then lists sys.modules. Names are checked exactly: the
+chip_smoke.py, tests/torch_mesh_harness.py and tests/torch_wire_host.py
+with every module those helpers import (the harness imports them inside
+its functions, so they are found by walking their source), then lists
+sys.modules. Names are checked exactly: the
 port's own package name starts with "deepflow_tpu", so a prefix test
 on that string would match the port itself."""
 
@@ -26,11 +27,14 @@ for name in names:
 import chip_smoke
 import ast
 sys.path.insert(0, "tests")
-import torch_mesh_harness
-tree = ast.parse(open(torch_mesh_harness.__file__).read())
-harness = sorted({n.module if isinstance(n, ast.ImportFrom) else a.name
-                  for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom))
-                  for a in n.names})
+import torch_mesh_harness, torch_wire_host
+harness = set()
+for helper in (torch_mesh_harness, torch_wire_host):
+    tree = ast.parse(open(helper.__file__).read())
+    harness |= {n.module if isinstance(n, ast.ImportFrom) else a.name
+                for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom))
+                for a in n.names}
+harness = sorted(harness)
 for name in harness:
     importlib.import_module(name)
 print(json.dumps({"imported": names, "harness": harness, "modules": sorted(sys.modules)}))
@@ -83,11 +87,14 @@ def test_port_and_chip_smoke_import_no_jax():
                 "controller.tagrecorder", "controller.prom_labels", "controller.trisolaris",
                 "controller.rest", "querier.profile", "server.events", "server.exporters",
                 "server.kafka_exporter", "server.integration", "server.debug", "server.mcp",
-                "server.main", "cli", "device"):
+                "server.main", "cli", "device", "native", "wire", "wire.frame", "wire.hub",
+                "wire.publisher", "wire.router", "oracle", "oracle.numpy_oracle",
+                "agent.ebpf_bridge", "agent.symbolizer", "controller.cloud_adapters",
+                "controller.trident_grpc", "utils.geo", "utils.segmenttree"):
         assert f"deepflow_tpu_torch.{mod}" in result["imported"]
-    # the harness chip_smoke spawns reaches the port's multi-process modules
+    # the helpers chip_smoke spawns reach the port's multi-process modules
     for mod in ("parallel.topology", "parallel.hostproc", "parallel.rebalance",
-                "ingest.handoff", "fleet"):
+                "ingest.handoff", "fleet", "wire.publisher"):
         assert f"deepflow_tpu_torch.{mod}" in result["harness"]
     assert not [m for m in result["harness"] if _is_forbidden(m)]
     forbidden = [m for m in result["modules"] if _is_forbidden(m)]
@@ -101,3 +108,19 @@ def test_forbidden_name_check_is_exact():
     assert not _is_forbidden("deepflow_tpu_torch")
     assert not _is_forbidden("deepflow_tpu_torch.ops.segment")
     assert not _is_forbidden("jaxlib")
+
+
+# the Pallas kernel files, ported by their wrappers' modules
+PALLAS_PORTS = {"ops/segreduce_pallas.py": "ops/segreduce.py",
+                "ops/sketch_pallas.py": "ops/sketch_fused.py"}
+
+
+def test_every_reference_module_has_a_port():
+    """Every .py of deepflow_tpu/ has a counterpart at the same relative
+    path in deepflow_tpu_torch/ (the Pallas files at their wrappers')."""
+    ref, port = REPO / "deepflow_tpu", REPO / "deepflow_tpu_torch"
+    rels = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py"))
+    assert len(rels) > 140
+    missing = [r for r in rels if not (port / PALLAS_PORTS.get(r, r)).is_file()]
+    assert missing == []
+    assert all((ref / r).is_file() for r in PALLAS_PORTS)

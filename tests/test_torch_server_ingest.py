@@ -17,7 +17,10 @@ same platform registry (region filter on). Then:
   * the codec copies encode and decode the same bytes and batches;
   * a worker exception surfaces from get_counters() and stop().
 
-The reference runs its Python decoder and queue (prefer_native=False).
+Both stacks run their Python decoder and queue (prefer_native=False):
+which frames share a decode batch depends on the decoders' speed, and
+the app_service sidecar's time is its batch's first doc's.
+tests/test_torch_native.py holds the port's native decoder against them.
 """
 
 from __future__ import annotations
@@ -144,7 +147,7 @@ def _run_stack(ref: bool, stream, root):
         recv = Receiver()
         store = ColumnarStore(root)
         writer = DocStoreWriter(store, writer_args={"flush_interval_s": 0.05})
-        extra = {}
+        extra = {"prefer_native": False}
         ing_cls = FlowMetricsIngester
     recv.start()
     ing = ing_cls(recv, writer, platform_state=state, n_workers=2, enrich_chunk=256, **extra)

@@ -14,17 +14,24 @@ of tests/test_lineage.py (the OTLP dogfood loop, the window-trace REST
 route, the alert-rules knob), tests/test_fleet.py's REST / dfctl / boot
 cases, tests/test_tracing.py::test_otlp_to_trace_tree_e2e and
 tests/test_push_plane.py::test_debug_plane_and_dfctl_listing; and the
-port's own rules: the device defaults to CUDA (raises here), the wire
-plane is refused before a port is bound, and a device error in the tick
-ends `dfctl server` with a non-zero exit."""
+port's own rules: the device defaults to CUDA (raises here) and a device
+error in the tick ends `dfctl server` with a non-zero exit.
+
+The pair boots with the reference's defaults for the ingester and the
+wire plane: native decode and queue (each package its own library) and
+the wire plane on; `test_rest_answers_equal` also reads both servers
+with the plane detached, and `test_server_boots_wire_plane` is the twin
+of tests/test_wire.py's case."""
 
 from __future__ import annotations
 
 import importlib
 import json
 import socket
+import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 
 import numpy as np
@@ -167,9 +174,8 @@ def _rules_file(path):
 def _config(pkg, tmp, rules):
     return m(pkg, "utils.config").load_config({
         "receiver": {"tcp_port": 0, "udp_port": 0},
-        "ingester": {"n_decoders": 2, "prefer_native": False},
+        "ingester": {"n_decoders": 2},
         "storage": {"writer_flush_s": 0.05, "root": str(tmp / f"{pkg}_store")},
-        "wire": {"enabled": False},
         "fleet": {"enabled": True, "listen_port": 0, "expiry_s": 120.0},
         "alert_rules": str(rules),
         "region_id": REGION,
@@ -314,8 +320,17 @@ def test_counters_ticks_and_exports_equal(pair):
     assert c["docs_in"] == sum(pair["stream"][2])
     assert _wait(lambda: sum(n for _, n in po["exported"]) == c["docs_written"])
     assert _wait(lambda: sum(n for _, n in ro["exported"]) == c["docs_written"])
-    assert sorted(po["exported"]) == sorted(ro["exported"])
+    # rows per table; how the writer's flushes cut them into calls depends
+    # on how fast the decoder threads ran
+    assert _per_table(po["exported"]) == _per_table(ro["exported"])
     assert all(t.startswith("network") for t, _ in po["exported"])
+
+
+def _per_table(exported):
+    out: dict = {}
+    for t, n in exported:
+        out[t] = out.get(t, 0) + n
+    return out
 
 
 def test_platform_refresh_carries_the_changed_resource(pair):
@@ -378,18 +393,39 @@ def _same_rows(got, want):
             assert g[k] == _f32(w[k]), k
 
 
-def test_rest_answers_equal(pair):
+@pytest.mark.parametrize("wire", ["on", "off"])
+def test_rest_answers_equal(pair, wire):
+    """Both servers answer alike with the wire plane on (their default)
+    and with it detached, as a server without the plane answers."""
+    servers = (pair["port"], pair["ref"])
+    hubs = [srv.wire for srv in servers]
+    assert all(h is not None for h in hubs)
+    if wire == "off":
+        for srv in servers:
+            srv.wire = None
+    try:
+        _rest_answers_equal(pair, wire == "on")
+    finally:
+        for srv, hub in zip(servers, hubs):
+            srv.wire = hub
+
+
+def _rest_answers_equal(pair, wire_on: bool):
     a, b = pair["port"].rest.port, pair["ref"].rest.port
     for path in ("/v1/health", "/v1/datasources", "/v1/resources", "/v1/resources/pod_ns",
                  "/v1/resources/pod_service", "/v1/query/tables", "/v1/agents",
                  "/v1/query/catalog?table=network", "/v1/fleet/nope", "/v1/watch",
-                 "/v1/wire", "/v1/traces/none", "/v1/trace/window/12345",
-                 "/v1/prom?query=up&time=1700000000", "/v1/nope"):
+                 "/v1/watch?promql=m&sql=x", "/v1/wire", "/v1/traces/none",
+                 "/v1/trace/window/12345", "/v1/prom?query=up&time=1700000000", "/v1/nope"):
         got, want = _http(a, path), _http(b, path)
         assert got[0] == want[0], path
         _same(got[1], want[1])
     assert _http(a, "/v1/health")[1] == {"status": "ok", "leader": True}
-    assert _http(a, "/v1/watch")[0] == 404 and _http(a, "/v1/wire")[0] == 404
+    if wire_on:
+        assert _http(a, "/v1/watch")[0] == 400 and _http(a, "/v1/wire")[0] == 200
+        assert {"counters", "connections"} <= set(_http(a, "/v1/wire")[1])
+    else:
+        assert _http(a, "/v1/watch")[0] == 404 and _http(a, "/v1/wire")[0] == 404
     names = [d["name"] for d in _http(a, "/v1/datasources")[1]]
     assert "network_1h" in names
     for sql in SQL:
@@ -838,14 +874,86 @@ def test_server_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert Server(_cfg(), device="cpu").device == torch.device("cpu")
 
 
-def test_wire_enabled_is_refused_before_binding():
-    cfg = m(PORT, "utils.config").load_config({"receiver": {"tcp_port": 0, "udp_port": 0}})[0]
-    assert cfg.wire.enabled  # the reference's default
-    srv = Server(cfg, exporters=[], device="cpu")
-    with pytest.raises(NotImplementedError, match="wire.enabled: false"):
-        srv.start()
+def _sse_events(port: int, params: dict, events: list, stop):
+    """Stream GET /v1/watch, appending each `data:` event until EOF or
+    `stop` (checked per line; heartbeats keep lines flowing)."""
+    url = f"http://127.0.0.1:{port}/v1/watch?" + urllib.parse.urlencode(params)
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            for raw in r:
+                if raw.startswith(b"data: "):
+                    events.append(json.loads(raw[6:]))
+                if stop.is_set():
+                    return
+    except (OSError, urllib.error.URLError):
+        pass
+
+
+def _insert_sample(pkg, store, t, value):
+    dfstats = m(pkg, "integration.dfstats")
+    dfstats.ensure_system_table(store)
+    store.insert(dfstats.DEEPFLOW_SYSTEM_DB, dfstats.DEEPFLOW_SYSTEM_TABLE, {
+        "time": np.asarray([t], np.uint32), "metric": np.asarray(["m"], object),
+        "labels": np.asarray([""], object), "value": np.asarray([value], np.float64)})
+
+
+def _watch_once(pkg, srv, t, value):
+    """One SSE stream (promql `m`, local) on a live server: a sample goes
+    in (its store event evaluates at wall time, before the stream opens),
+    then its WindowClosed; the stream's one event comes out."""
+    events: list = []
+    stop = threading.Event()
+    _insert_sample(pkg, srv.store, t, value)
+    th = threading.Thread(target=_sse_events, daemon=True, args=(
+        srv.rest.port, {"promql": "m", "scope": "local", "span_s": 5, "max_events": 1,
+                        "heartbeat_s": 0.2}, events, stop))
+    th.start()
+    try:
+        assert _wait(lambda: srv.wire.get_counters()["connections_open"] == 1)
+        dfstats = m(pkg, "integration.dfstats")
+        srv.event_bus.publish(m(pkg, "querier.events").WindowClosed(
+            dfstats.DEEPFLOW_SYSTEM_DB, dfstats.DEEPFLOW_SYSTEM_TABLE, t))
+        assert _wait(lambda: events)
+        th.join(timeout=30)
+        assert not th.is_alive()
+    finally:
+        stop.set()
+    return events
+
+
+def test_watch_streams_equal(pair):
+    """The same sample on both live servers: the SSE streams deliver the
+    same event."""
+    got = _watch_once(PORT, pair["port"], T0 + 7200, 8.0)
+    want = _watch_once(REF, pair["ref"], T0 + 7200, 8.0)
+    assert got == want and got[0]
+
+
+def test_server_boots_wire_plane(tmp_path):
+    """The reference's default config (wire plane on, native decode), with
+    the TCP listener and the router on too, boots; a row reaches an SSE
+    client through the live server; the router pane rides /v1/wire."""
+    cfg, _ = m(PORT, "utils.config").load_config({
+        "receiver": {"tcp_port": 0, "udp_port": 0},
+        "storage": {"root": str(tmp_path / "store")},
+        "wire": {"tcp_enabled": True, "router_enabled": True, "lease_s": 45.0},
+    })
+    assert cfg.wire.enabled and cfg.ingester.prefer_native  # the reference's defaults
+    srv = Server(cfg, exporters=[], device="cpu").start()
+    try:
+        assert srv.flow_metrics._use_native, m(PORT, "native").build_error()
+        assert srv.wire is not None and srv.wire.lease_s == 45.0
+        assert srv.wire_tcp is not None and srv.wire_tcp.port > 0
+        assert srv.wire_router is not None and srv.wire_router.port > 0
+        events = _watch_once(PORT, srv, T0, 8.0)
+        assert events and events[0][0]["values"]
+        code, pane = _http(srv.rest.port, "/v1/wire")
+        assert code == 200 and pane["counters"]["deliveries"] >= 1
+        assert "router" in pane, "router pane rides /v1/wire when enabled"
+        srv.tick()  # the reap lane runs on the server clock
+    finally:
+        srv.stop()
     assert not srv.started
-    assert not any(hasattr(srv, a) for a in ("store", "receiver", "rest", "debug", "mcp"))
 
 
 def test_dfctl_server_ends_on_a_device_error(tmp_path, monkeypatch, capsys):
