@@ -449,6 +449,20 @@ def _dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
 
 
+def _card_work(prof) -> list:
+    """The card's work in a profile's key averages: kernels, copies and
+    memsets. Left out are the card-side mirrors of host
+    `record_function` ranges (the pipeline's spans open one while a
+    profiler runs): user annotations that span their layer's kernels and
+    are no work of their own, as benchmark/trace.py counts them."""
+    from deepflow_tpu_torch.utils import spans
+
+    names = {v for k, v in vars(spans).items() if k.startswith("SPAN_")}
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.key not in names]
+
+
 # Where the profiler's trace came back without the device time after
 # every session, in the order met: the matched kernel name (or "all
 # kernels") of each call whose device time CUDA events took instead.
@@ -503,9 +517,7 @@ def device_time(fn, match, launches_per_call: int | None = None,
             for _ in range(REPS):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and (match is None or match in e.key)]
+        events = [e for e in _card_work(prof) if match is None or match in e.key]
         complete = (launches_per_call is None
                     or sum(e.count for e in events) == launches_per_call * REPS)
         if events and sum(_dev_us(e) for e in events) > 0 and complete:
@@ -548,7 +560,7 @@ def kernel_operands(dev):
     built with the port's own functions from the bench.py stream."""
     from deepflow_tpu_torch.aggregator.fanout import FANOUT_LANES, FanoutConfig
     from deepflow_tpu_torch.aggregator.pipeline import (
-        make_ingest_step, prereduce_keys, upload_flow_batch,
+        make_ingest_step, pack_flow_batch, prereduce_keys, upload_flow_batch,
     )
     from deepflow_tpu_torch.aggregator.stash import (
         accum_init, fold_operands, merge_fold_keys, merge_operands, stash_init,
@@ -567,7 +579,7 @@ def kernel_operands(dev):
         return sorted_operands(*sort_keys(slot, hi, lo, valid), rows, cap)
 
     gen = SyntheticFlowGen(num_tuples=10_000, seed=0)
-    tags, meters, valid = upload_flow_batch(gen.flow_batch(BATCH, T0), dev)
+    tags, meters, valid = upload_flow_batch(pack_flow_batch(gen.flow_batch(BATCH, T0)), dev)
     _, slot, hi, lo, _ = prereduce_keys(tags, 1)
     pre = operands(slot, hi, lo, meters, valid, UNIQUE_CAP)
 
@@ -609,7 +621,8 @@ def tier_merge_operands(dev):
     with a live tier stash. Returns fold_operands' tuple."""
     from deepflow_tpu_torch.aggregator import cascade
     from deepflow_tpu_torch.aggregator.fanout import FANOUT_LANES, FanoutConfig
-    from deepflow_tpu_torch.aggregator.pipeline import make_ingest_step, upload_flow_batch
+    from deepflow_tpu_torch.aggregator.pipeline import (make_ingest_step, pack_flow_batch,
+                                                        upload_flow_batch)
     from deepflow_tpu_torch.aggregator.stash import (
         _flush_range_impl, accum_init, fold_operands, stash_init,
     )
@@ -627,7 +640,8 @@ def tier_merge_operands(dev):
     fill = torch.zeros((), dtype=torch.int64, device=dev)
     lanes = torch.zeros((2,), dtype=torch.int64, device=dev)
     for k, s in enumerate(CASCADE_SECONDS[:9]):
-        tags, meters, valid = upload_flow_batch(gen.flow_batch(BATCH, T0 + s), dev)
+        tags, meters, valid = upload_flow_batch(pack_flow_batch(gen.flow_batch(BATCH, T0 + s)),
+                                                dev)
         child = stash_init(STASH_CAPACITY, TAG_SCHEMA, FLOW_METER, device=dev)
         ring = accum_init(FANOUT_LANES * UNIQUE_CAP, TAG_SCHEMA, FLOW_METER, device=dev)
         child, ring = fold(*append(child, ring, 0, tags, meters, valid))
@@ -736,7 +750,8 @@ def sketch_operands(dev, sk=None, fb=None, sw: int | None = None):
     With `sk`, `fb` and `sw`: the operands of host batch `fb` against
     plane `sk` behind the gate `sw` (a restored manager's next batch)."""
     from deepflow_tpu_torch.aggregator import sketchplane as sp
-    from deepflow_tpu_torch.aggregator.pipeline import batch_prereduce, upload_flow_batch
+    from deepflow_tpu_torch.aggregator.pipeline import (batch_prereduce, pack_flow_batch,
+                                                        upload_flow_batch)
     from deepflow_tpu_torch.aggregator.stash import sum_max_cols
     from deepflow_tpu_torch.aggregator.window import (
         sketch_inputs_from_columns, sketch_span_bounds,
@@ -749,7 +764,7 @@ def sketch_operands(dev, sk=None, fb=None, sw: int | None = None):
     sw = T0 - DELAY if sw is None else sw
 
     def plane_batch(batch):
-        tags, meters, valid = upload_flow_batch(batch, dev)
+        tags, meters, valid = upload_flow_batch(pack_flow_batch(batch), dev)
         tags, meters, valid, _ = batch_prereduce(tags, meters, valid, 1, UNIQUE_CAP,
                                                  sum_cols, max_cols)
         inp = sketch_inputs_from_columns(tags, meters, cfg.num_groups, FLOW_METER.index)
@@ -885,8 +900,7 @@ def profile_cycle(cycle, *, host_ops: bool = True):
         cycle()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _card_work(prof)
     dev_us = _dev_us
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
@@ -910,14 +924,15 @@ def bench_cycle(dev, cycles: int, with_profile: bool = False, sketch=None,
     `with_profile` — one more cycle's profile_cycle summary with one more
     fold's alone under "fold", and the final stash)."""
     from deepflow_tpu_torch.aggregator.fanout import FANOUT_LANES, FanoutConfig
-    from deepflow_tpu_torch.aggregator.pipeline import make_ingest_step, upload_flow_batch
+    from deepflow_tpu_torch.aggregator.pipeline import (make_ingest_step, pack_flow_batch,
+                                                        upload_flow_batch)
     from deepflow_tpu_torch.aggregator.sketchplane import sketch_init
     from deepflow_tpu_torch.aggregator.stash import accum_init, stash_init
     from deepflow_tpu_torch.datamodel.schema import FLOW_METER, TAG_SCHEMA
     from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
 
-    tags, meters, valid = upload_flow_batch(
-        SyntheticFlowGen(num_tuples=10_000, seed=0).flow_batch(BATCH, T0), dev)
+    tags, meters, valid = upload_flow_batch(pack_flow_batch(
+        SyntheticFlowGen(num_tuples=10_000, seed=0).flow_batch(BATCH, T0)), dev)
     append, fold = make_ingest_step(FanoutConfig(), interval=1,
                                     batch_unique_cap=UNIQUE_CAP, fold_mode=fold_mode,
                                     sketch_config=sketch, delay=DELAY, device=dev)
@@ -1129,8 +1144,7 @@ def record_advances(wm, profile_his=(), capture_his=(), out: list | None = None)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 flushes = real(packed, total, hi)
                 torch.cuda.synchronize()
-            events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            events = _card_work(prof)
             rec["copies"] = {d: sum(e.count for e in events if f"Memcpy {d}" in e.key)
                              for d in ("DtoH", "HtoD", "DtoD")}
             rec["device_ms"] = sum(_dev_us(e) for e in events
@@ -1308,8 +1322,7 @@ def device_time_each(fn, setup, reps: int = 5) -> tuple[float, float]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn(*args)
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = _card_work(prof)
         dev_ms += sum(_dev_us(e) for e in events) / 1e3
         launches += sum(e.count for e in events)
     if dev_ms == 0:  # the profiler missed every call: CUDA events, as in device_time
@@ -1459,13 +1472,15 @@ def stage_stream(dev, seconds: list[int], seed: int = 1) -> list:
     """Full-width SyntheticFlowGen(10_000) batches of the given seconds,
     each uploaded to the card as a pipeline's StagedBatch (the host copy
     is dropped at once: 18 of them would hold ~15 GB of host memory)."""
-    from deepflow_tpu_torch.aggregator.pipeline import StagedBatch, upload_flow_batch
+    from deepflow_tpu_torch.aggregator.pipeline import (StagedBatch, pack_flow_batch,
+                                                        upload_flow_batch)
     from deepflow_tpu_torch.ingest.replay import SyntheticFlowGen
 
     gen = SyntheticFlowGen(num_tuples=10_000, seed=seed)
     staged = []
     for dt in seconds:
-        tags, meters, valid = upload_flow_batch(gen.flow_batch(BATCH, T0 + dt), dev)
+        tags, meters, valid = upload_flow_batch(pack_flow_batch(gen.flow_batch(BATCH, T0 + dt)),
+                                                dev)
         staged.append(StagedBatch(tags=tags, meters=meters, valid=valid, padded_rows=BATCH))
     torch.cuda.synchronize()
     return staged
@@ -1499,7 +1514,7 @@ def take_snapshot(pipe, how: str | None) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             snap = pipe.snapshot_open(force=True)
             torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ev = _card_work(prof)
         kernels = [e for e in ev if not e.key.startswith("Memcpy")]
         copies = [e for e in ev if e.key.startswith("Memcpy")]
         out.update(device_ms=sum(_dev_us(e) for e in kernels) / 1e3,

@@ -33,7 +33,10 @@ registry (`server.datasource.register_cascade_tiers`), weakly held.
 
 Self-observability, as in the reference: every pipeline registers its
 fetch-free counters (`tpu_pipeline`) and its WindowManager's stage spans
-(`tpu_pipeline_spans`) on the default StatsCollector, weakly; the
+(`tpu_pipeline_spans`) on the default StatsCollector, weakly; beyond the
+reference's, `stage()` records `stage.pack` and `stage.upload` (with
+the bytes uploaded) and the step `step.prereduce`, `step.sketch` and
+`step.fanout` with their device time (utils/spans ROLLUP_SPAN_NAMES); the
 manager is on the device-memory ledger (profiling/ledger.py). The first
 dispatch of each bucket shape is observed by the step census
 (profiling/census.py, step "fused_step", the reference's name):
@@ -65,6 +68,13 @@ from ..device import resolve_device
 from ..ops.hashing import fingerprint64_words
 from ..ops.segment import groupby_reduce, sort_census
 from ..ops.u32 import from_numpy_u32
+from ..utils.spans import (
+    SPAN_STAGE_PACK,
+    SPAN_STAGE_UPLOAD,
+    SPAN_STEP_FANOUT,
+    SPAN_STEP_PREREDUCE,
+    SPAN_STEP_SKETCH,
+)
 from ..utils.stats import register_countable
 from .fanout import FANOUT_LANES, FanoutConfig, fanout_l4, fanout_l7
 from ..ops.segment import SENTINEL_SLOT
@@ -130,16 +140,23 @@ def batch_prereduce(tags: dict, meters, valid, interval: int, cap: int,
     return r_tags, g.meters.t().contiguous(), g.seg_valid, dropped
 
 
-def upload_flow_batch(batch: FlowBatch, device) -> tuple[dict, torch.Tensor, torch.Tensor]:
-    """Host FlowBatch → (tag lanes dict, [N, M] f32 meters, [N] bool) on
-    `device`; the tag columns travel as ONE packed u32 upload."""
-    names = sorted(batch.tags)
-    mat = from_numpy_u32(np.stack([np.asarray(batch.tags[k]) for k in names]), device)
-    tags = {k: mat[i] for i, k in enumerate(names)}
-    # decoded wire frames hand over read-only buffers: copy those
-    meters = torch.from_numpy(np.require(batch.meters, np.float32, ["C", "W"])).to(device)
-    valid = torch.from_numpy(np.asarray(batch.valid, bool)).to(device)
-    return tags, meters, valid
+def pack_flow_batch(batch: FlowBatch) -> tuple:
+    """The host half of the upload: (sorted tag names, [T, N] u32 tag
+    matrix, [N, M] C-contiguous f32 meters, [N] bool valid). The meters
+    are copied only where read-only (decoded wire frames) or not f32."""
+    names = tuple(sorted(batch.tags))
+    tags = np.stack([np.asarray(batch.tags[k]) for k in names]).astype(np.uint32, copy=False)
+    return (names, tags, np.require(batch.meters, np.float32, ["C", "W"]),
+            np.asarray(batch.valid, bool))
+
+
+def upload_flow_batch(packed: tuple, device) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """A pack_flow_batch → (tag lanes dict, [N, M] f32 meters, [N] bool)
+    on `device`; the tag columns travel as ONE u32 upload."""
+    names, tag_mat, meters, valid = packed
+    mat = from_numpy_u32(tag_mat, device)
+    return ({k: mat[i] for i, k in enumerate(names)}, torch.from_numpy(meters).to(device),
+            torch.from_numpy(valid).to(device))
 
 
 def sketch_flow_rows(sk: SketchState, spec, tags: dict, meters, valid, start_window, *,
@@ -190,7 +207,8 @@ def make_ingest_step(fanout_config: FanoutConfig, interval: int = 1, app: bool =
 
     def _lanes(tags, meters, valid):
         if isinstance(meters, np.ndarray):
-            return upload_flow_batch(FlowBatch(tags=tags, meters=meters, valid=valid), dev)
+            return upload_flow_batch(
+                pack_flow_batch(FlowBatch(tags=tags, meters=meters, valid=valid)), dev)
         return tags, meters, valid
 
     def _base_append(stash, acc, offset, tags, meters, valid, sk=None, start_window=0):
@@ -326,38 +344,44 @@ class RollupPipeline:
               valid):
         """One batch: [pre-reduce →] [sketch plane →] fanout →
         fingerprint → counter block (with the cascade's [rows, shed] and
-        the live read's [reads, bytes] lanes) → ring append. Returns
-        (acc, counter block), plus the sketch plane when it is on.
-        `start_window` is a host int or the device gate (stats_ring > 1)."""
+        the live read's [reads, bytes] lanes) → ring append, under the
+        spans step.prereduce, step.sketch and step.fanout (host and
+        device time). Returns (acc, counter block), plus the sketch plane
+        when it is on. `start_window` is a host int or the device gate
+        (stats_ring > 1)."""
         window_cfg = self.config.window
         interval = window_cfg.interval
+        span, dev = self.tracer.span, self.device
         aux = None
         cap_u = self.config.batch_unique_cap
         if cap_u is not None:
-            tags, meters, valid, aux = batch_prereduce(
-                tags, meters, valid, interval, cap_u, self._sum_cols, self._max_cols
-            )
+            with span(SPAN_STEP_PREREDUCE, dev):
+                tags, meters, valid, aux = batch_prereduce(
+                    tags, meters, valid, interval, cap_u, self._sum_cols, self._max_cols
+                )
         if sk is not None:
             # from the pre-reduced rows, before the fanout: a flow counts
             # once (doc-lane replication would multiply its weights)
-            sk = sketch_flow_rows(sk, window_cfg.sketch.hist, tags, meters, valid,
-                                  start_window, interval=interval,
-                                  delay=window_cfg.delay,
-                                  meter_ix=self.meter_schema.index)
-        doc_tags, doc_meters, ts, doc_valid = self.fanout_fn(
-            tags, meters, valid, self.config.fanout
-        )
-        hi, lo, excess = _doc_fingerprint(doc_tags, with_excess=True)
-        gated, window, block = batch_counter_block(
-            ts, doc_valid, start_window, interval, aux=aux,
-            excess_hits=((excess != 0) & doc_valid).sum(),
-            stash_valid=stash_valid, stash_evictions=stash_evict,
-            ring_fill=offset, feeder_shed=feeder_shed, fold_rows=fold_rows,
-            cascade_rows=casc_lanes[0], cascade_shed=casc_lanes[1],
-            snapshot_reads=snap_lanes[0], snapshot_bytes=snap_lanes[1],
-            **sketch_counter_lanes(sk),
-        )
-        acc = _append_impl(acc, window, hi, lo, doc_tags, doc_meters, gated, offset)
+            with span(SPAN_STEP_SKETCH, dev):
+                sk = sketch_flow_rows(sk, window_cfg.sketch.hist, tags, meters, valid,
+                                      start_window, interval=interval,
+                                      delay=window_cfg.delay,
+                                      meter_ix=self.meter_schema.index)
+        with span(SPAN_STEP_FANOUT, dev):
+            doc_tags, doc_meters, ts, doc_valid = self.fanout_fn(
+                tags, meters, valid, self.config.fanout
+            )
+            hi, lo, excess = _doc_fingerprint(doc_tags, with_excess=True)
+            gated, window, block = batch_counter_block(
+                ts, doc_valid, start_window, interval, aux=aux,
+                excess_hits=((excess != 0) & doc_valid).sum(),
+                stash_valid=stash_valid, stash_evictions=stash_evict,
+                ring_fill=offset, feeder_shed=feeder_shed, fold_rows=fold_rows,
+                cascade_rows=casc_lanes[0], cascade_shed=casc_lanes[1],
+                snapshot_reads=snap_lanes[0], snapshot_bytes=snap_lanes[1],
+                **sketch_counter_lanes(sk),
+            )
+            acc = _append_impl(acc, window, hi, lo, doc_tags, doc_meters, gated, offset)
         return (acc, block) if sk is None else (acc, block, sk)
 
     def _pad_target(self, rows: int) -> int:
@@ -373,24 +397,27 @@ class RollupPipeline:
         )
 
     def stage(self, batch: FlowBatch) -> StagedBatch | None:
-        """Pad to the shape bucket and upload. None for an all-padding
+        """Pad to the shape bucket and upload (spans stage.pack, then
+        stage.upload with the bytes uploaded). None for an all-padding
         batch."""
-        batch = batch.pad_to(self._pad_target(batch.size))
-        if not np.any(batch.valid):
-            return None
         lin = self._lineage
         t_min, t_max, s0 = 0, -1, 0.0
-        if lin is not None:
-            # host event-time bounds BEFORE the upload (numpy — free); the
-            # dispatch binds them to the lineage window span
-            ts = np.asarray(batch.tags["timestamp"])[batch.valid]
-            if ts.size:
-                t_min, t_max = int(ts.min()), int(ts.max())
-            s0 = lin.clock()
-        tags, meters, valid = upload_flow_batch(batch, self.device)
-        self.wm.bytes_uploaded += (
-            4 * len(tags) * batch.size + meters.nbytes + valid.nbytes
-        )
+        with self.tracer.span(SPAN_STAGE_PACK):
+            batch = batch.pad_to(self._pad_target(batch.size))
+            if not np.any(batch.valid):
+                return None
+            if lin is not None:
+                # host event-time bounds BEFORE the upload (numpy — free);
+                # the dispatch binds them to the lineage window span
+                ts = np.asarray(batch.tags["timestamp"])[batch.valid]
+                if ts.size:
+                    t_min, t_max = int(ts.min()), int(ts.max())
+                s0 = lin.clock()
+            packed = pack_flow_batch(batch)
+        with self.tracer.span(SPAN_STAGE_UPLOAD) as up:
+            tags, meters, valid = upload_flow_batch(packed, self.device)
+            up.bytes = 4 * len(tags) * batch.size + meters.nbytes + valid.nbytes
+        self.wm.bytes_uploaded += up.bytes
         if lin is not None:
             lin.note_stage(s0)
         return StagedBatch(tags=tags, meters=meters, valid=valid,

@@ -55,10 +55,17 @@ reference's order, so a fault plan's call indices name the same
 dispatch and fetch in both packages; retries are counted in
 `dispatch_retries` / `fetch_retries`.
 
-Self-observability: the host stage spans of utils/spans (`ingest.dispatch`,
-`stats.fetch`, `window.advance`, `window.fold`, `flush.drain`,
-`query.snapshot`) on `self.tracer` — two perf_counter calls each, never
-a device sync — and `device_planes()`, the Profilable face the manager
+Self-observability: the stage spans of utils/spans (`ingest.dispatch`,
+`stats.fetch`, `window.advance`, `window.fold`, `flush.drain` with its
+`flush.wait` / `flush.copy` / `flush.split`, `query.snapshot`) on
+`self.tracer` — two perf_counter calls each, never a device sync; each
+is a torch.profiler range while a profiler runs, `flush.copy` carries
+the bytes fetched, and `window.fold` (like the pipeline's `step.*`
+spans) records a CUDA event pair. The pairs are read
+(`tracer.resolve_device()`: `Event.query()`, no synchronise, no extra
+fetch) just after the `stats.fetch` and `flush.drain` spans close,
+whose fetches have already waited for the card; no span's time holds
+the reading. And `device_planes()`, the Profilable face the manager
 registers on the process-wide device-memory ledger at construction
 (weakly; `close()` deregisters eagerly).
 
@@ -88,7 +95,10 @@ from ..ops.hashing import fingerprint64_words
 from ..ops.u32 import MASK, U32_MAX, add, from_numpy_u32, mul, shl, to_i32_bits
 from ..utils.retry import RetryPolicy, decorrelated_rng, is_dispatch_transient, retry_call
 from ..utils.spans import (
+    SPAN_FLUSH_COPY,
     SPAN_FLUSH_DRAIN,
+    SPAN_FLUSH_SPLIT,
+    SPAN_FLUSH_WAIT,
     SPAN_INGEST_DISPATCH,
     SPAN_QUERY_SNAPSHOT,
     SPAN_STATS_FETCH,
@@ -664,18 +674,20 @@ class WindowManager:
         the row fetch becomes one int32 concatenation (flush rows ‖ block
         rows ‖ block window ids, then, when a wide slot closed, every wide
         row ‖ its window id — the host skips the open ones — then the
-        rows of each tier flush); the blocks marry their windows, and a
-        block whose window has no exact rows in this drain's range
-        becomes a sketch-only window. Closed blocks then feed the
-        cascade's parent merges, and the tier windows are built."""
-        scalars = [entry.total]
-        if entry.pend is not None:
-            scalars.append(entry.pend_n)
-        if entry.wide_rows is not None:
-            scalars.append((entry.wide_wins != SENTINEL_WIN).sum())
-        scalars += [tf.total for tf in entry.tiers]
-        vec = [int(v) for v in self._fetch(torch.stack(scalars) if len(scalars) > 1
-                                           else scalars[0]).reshape(-1)]
+        rows of each tier flush). Spans: flush.wait (the scalar fetch,
+        which waits for the fold and flush still queued on the card),
+        flush.copy (the row fetch, with its bytes), flush.split
+        (`_split_drained`)."""
+        span = self.tracer.span
+        with span(SPAN_FLUSH_WAIT):
+            scalars = [entry.total]
+            if entry.pend is not None:
+                scalars.append(entry.pend_n)
+            if entry.wide_rows is not None:
+                scalars.append((entry.wide_wins != SENTINEL_WIN).sum())
+            scalars += [tf.total for tf in entry.tiers]
+            vec = [int(v) for v in self._fetch(torch.stack(scalars) if len(scalars) > 1
+                                               else scalars[0]).reshape(-1)]
         total = vec[0]
         n_blocks = vec[1] if entry.pend is not None else 0
         n_wide = vec[2] if entry.wide_rows is not None else 0
@@ -692,12 +704,25 @@ class WindowManager:
                 return []
             flat = np.zeros((0,), np.uint32)
         else:
-            parts = [entry.packed[:total].reshape(-1)]
-            for rows, wins in groups:
-                parts += [rows.reshape(-1), to_i32_bits(wins)]
-            parts += [tf.packed[:t].reshape(-1) for tf, t in zip(entry.tiers, tier_totals)]
-            flat = self._fetch(torch.cat(parts) if len(parts) > 1 else parts[0]
-                               ).view(np.uint32)
+            with span(SPAN_FLUSH_COPY) as copy:
+                parts = [entry.packed[:total].reshape(-1)]
+                for rows, wins in groups:
+                    parts += [rows.reshape(-1), to_i32_bits(wins)]
+                parts += [tf.packed[:t].reshape(-1)
+                          for tf, t in zip(entry.tiers, tier_totals)]
+                flat = self._fetch(torch.cat(parts) if len(parts) > 1 else parts[0]
+                                   ).view(np.uint32)
+                copy.bytes = flat.nbytes
+        with span(SPAN_FLUSH_SPLIT):
+            return self._split_drained(entry, flat, total, groups, tier_totals)
+
+    def _split_drained(self, entry: _FlushEntry, flat: np.ndarray, total: int,
+                       groups: list, tier_totals: list) -> list[FlushedWindow]:
+        """The host half of a drain: the fetched rows into windows; the
+        blocks marry their windows, and a block whose window has no exact
+        rows in this drain's range becomes a sketch-only window. Closed
+        blocks then feed the cascade's parent merges, and the tier
+        windows are built."""
         row_cols = entry.packed.shape[1]
         o = total * row_cols
         self.total_flushed += total
@@ -771,7 +796,8 @@ class WindowManager:
             out = []
             for entry in ready:
                 out.extend(self._drain_flush(entry))
-            return out
+        self.tracer.resolve_device()
+        return out
 
     def _fold(self):
         """Full-set fold: every accumulated row reaches the stash and the
@@ -779,7 +805,7 @@ class WindowManager:
         if self.fill == 0:
             return
         fold = stash_merge_fold if self.config.fold_mode == "merge" else stash_fold_counted
-        with self.tracer.span(SPAN_WINDOW_FOLD):
+        with self.tracer.span(SPAN_WINDOW_FOLD, self.device):
             self.state, self.acc, self._fold_rows_dev = fold(self.state, self.acc,
                                                              self.meter_schema)
         self.fill = 0
@@ -791,7 +817,7 @@ class WindowManager:
         back at the next full fold (plan_append)."""
         if self.fill == 0:
             return
-        with self.tracer.span(SPAN_WINDOW_FOLD):
+        with self.tracer.span(SPAN_WINDOW_FOLD, self.device):
             self.state, self.acc, self._fold_rows_dev = stash_merge_fold(
                 self.state, self.acc, self.meter_schema, hi_window=hi_window
             )
@@ -824,6 +850,9 @@ class WindowManager:
     def _process_stats(self, stats_dev: torch.Tensor) -> None:
         with self.tracer.span(SPAN_STATS_FETCH):
             vec = [int(v) for v in self._fetch(stats_dev)]
+        # the fetch waited for the card: the spans' event pairs recorded
+        # before it have finished (read outside the span it times)
+        self.tracer.resolve_device()
         self._process_block(vec)
 
     def _drain_stats_ring(self) -> None:
@@ -835,6 +864,7 @@ class WindowManager:
             return
         with self.tracer.span(SPAN_STATS_FETCH):
             rows = self._fetch(self._cb_ring[:self._ring_count])
+        self.tracer.resolve_device()
         self._ring_count = 0
         for row in rows:
             self._process_block([int(v) for v in row])

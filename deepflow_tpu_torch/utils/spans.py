@@ -2,20 +2,40 @@
 of deepflow_tpu/utils/spans.py).
 
 A monotonic-clock span recorder with a fixed vocabulary of stage names
-(dispatching the append step, the counter-block fetch, the window
-advance and its fold, the flush drain, checkpoint saves, the live read),
-cheap enough to stay always-on: two perf_counter calls per span and no
-device synchronisation, so a span of an asynchronous CUDA step measures
-its host cost, as the reference's does for a jit dispatch. Faces:
+(staging a batch, dispatching the append step and its sub-layers, the
+counter-block fetch, the window advance and its fold, the flush drain
+and its wait / copy / split, checkpoint saves, the live read), cheap
+enough to stay always-on: two perf_counter calls per span and no device
+synchronisation, so a span of an asynchronous CUDA step measures its
+host cost, as the reference's does for a jit dispatch. Three additions
+over the reference's tracer:
+
+  * profiler ranges — while a torch.profiler session is active each
+    span also opens a `record_function` range of its name, so the spans
+    sit on the profiler's timeline beside the kernels they launch; with
+    no profiler only the enabled flag is read;
+  * a work count — `with tracer.span(name) as sp: ...; sp.bytes = n`
+    adds `n` to the span's `bytes` total;
+  * device time — `span(name, device=d)` with a CUDA device records a
+    timing-event pair on the current stream around the span's launches
+    (events from a small reused pool). `resolve_device()` reads the
+    pairs with `Event.query()` and is called only where the program has
+    already waited for the card (WindowManager: just after its
+    `stats.fetch` and `flush.drain` spans close); it never synchronises
+    and never fetches. A pair measures the stream's elapsed time from
+    the layer's first launch to its last kernel's end, launch gaps
+    included; a profiler trace gives the kernels alone.
+
+Faces:
 
   * `summary()` — per-stage count/total/max/last aggregates with the
-    log-histogram p50/p95/p99, for bench JSON and `telemetry()`;
+    log-histogram p50/p95/p99, plus `bytes` (spans that carried a work
+    count) and `device_us` / `device_count` (resolved pairs only;
+    absent on a CPU device), for bench JSON and `telemetry()`;
   * `get_counters()` — a flat Countable field map, so the tracer
     registers on `utils/stats.StatsCollector` like any component and
     its aggregates dogfood into the `deepflow_system` table;
-  * `quantiles()`, `hist_dump()` and `tdigest()` — per-stage latency
-    distributions (the t-digest through ops/tdigest.tdigest_from_loghist
-    on a small host tensor);
+  * `quantiles()` and `hist_dump()` — per-stage latency distributions;
   * `recent()` / `drain()` and `export_otlp(exporter)` — the ring of
     recent SpanRecords, drained through any exporter with an
     `export(table, cols)` method (the reference's OtlpExporter shape).
@@ -34,6 +54,8 @@ from collections import deque
 from contextlib import contextmanager
 
 import numpy as np
+import torch
+from torch.profiler import record_function
 
 # The pipeline stage vocabulary (explicit names). Everything the window
 # managers emit uses these; ad-hoc names are allowed but the docs/tests
@@ -80,6 +102,38 @@ PIPELINE_SPAN_NAMES = (
     SPAN_QUERY_SNAPSHOT,
     SPAN_QUERY_CACHE,
 )
+
+# The rollup's layers inside those stages. `RollupPipeline.stage()` is
+# stage.pack then stage.upload; RollupPipeline._step runs step.prereduce
+# (with batch_unique_cap), step.sketch (with the sketch plane) and
+# step.fanout inside ingest.dispatch; WindowManager._drain_flush runs
+# flush.wait, flush.copy (when rows ride) and flush.split inside
+# flush.drain. Not in PIPELINE_SPAN_NAMES: a bare WindowManager.ingest
+# emits no stage.* and no step.*.
+SPAN_STAGE_PACK = "stage.pack"  # pad, valid check, stack of the tag lanes (host)
+SPAN_STAGE_UPLOAD = "stage.upload"  # the host→device copies; bytes = bytes uploaded
+SPAN_STEP_PREREDUCE = "step.prereduce"  # batch_prereduce (device time)
+SPAN_STEP_SKETCH = "step.sketch"  # sketch_flow_rows (device time)
+# fanout → doc fingerprint → counter block → ring append (device time)
+SPAN_STEP_FANOUT = "step.fanout"
+SPAN_FLUSH_WAIT = "flush.wait"  # the scalar fetch: waits for the queued fold + flush
+SPAN_FLUSH_COPY = "flush.copy"  # the packed row fetch; bytes = bytes fetched
+SPAN_FLUSH_SPLIT = "flush.split"  # host split into windows, blocks, tier hand-off
+
+ROLLUP_SPAN_NAMES = (
+    SPAN_STAGE_PACK,
+    SPAN_STAGE_UPLOAD,
+    SPAN_STEP_PREREDUCE,
+    SPAN_STEP_SKETCH,
+    SPAN_STEP_FANOUT,
+    SPAN_FLUSH_WAIT,
+    SPAN_FLUSH_COPY,
+    SPAN_FLUSH_SPLIT,
+)
+
+#: at most this many event pairs wait for resolve_device(); older ones
+#: are dropped unread (a tracer nobody resolves stays bounded)
+MAX_PENDING_PAIRS = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +205,8 @@ SPAN_QUANTILES = (0.5, 0.95, 0.99)
 
 
 class _Agg:
-    __slots__ = ("count", "total_us", "max_us", "last_us", "hist")
+    __slots__ = ("count", "total_us", "max_us", "last_us", "hist", "bytes", "device_us",
+                 "device_count")
 
     def __init__(self, bins: int):
         self.count = 0
@@ -163,19 +218,45 @@ class _Agg:
         # read-modify-write on the bin counter cannot lose updates under
         # concurrent feeder-pump + query threads
         self.hist = np.zeros(bins, np.int64)
+        self.bytes: int | None = None  # None until a span carries a work count
+        self.device_us = 0.0  # over resolved event pairs only
+        self.device_count = 0
 
-    def add(self, dur_us: int, bin_idx: int) -> None:
+    def add(self, dur_us: int, bin_idx: int, nbytes: int | None = None) -> None:
         self.count += 1
         self.total_us += dur_us
         self.last_us = dur_us
         if dur_us > self.max_us:
             self.max_us = dur_us
         self.hist[bin_idx] += 1
+        if nbytes is not None:
+            self.bytes = (self.bytes or 0) + int(nbytes)
+
+    def extra(self) -> dict:
+        """The work count and the device time, each only where measured
+        (a CPU span has no device time: no zero stands in for it)."""
+        out = {}
+        if self.bytes is not None:
+            out["bytes"] = self.bytes
+        if self.device_count:
+            out["device_us"] = round(self.device_us, 1)
+            out["device_count"] = self.device_count
+        return out
+
+
+class SpanWork:
+    """What a span's body reports: `bytes` moved (None: no work count)."""
+
+    __slots__ = ("bytes",)
+
+    def __init__(self):
+        self.bytes: int | None = None
 
 
 class SpanTracer:
     """Monotonic-clock stage spans: aggregates + per-stage log-histograms
-    always, ring for export."""
+    always, ring for export; profiler ranges while a profiler runs and
+    device-time event pairs for spans given a CUDA device."""
 
     def __init__(self, service: str = "deepflow_tpu.pipeline", ring_size: int = 2048,
                  hist_spec: SpanHistSpec = SpanHistSpec()):
@@ -185,25 +266,76 @@ class SpanTracer:
         self._agg: dict[str, _Agg] = {}
         self._lock = threading.Lock()
         self._seq = 0
+        # (name, device, start event, end event) awaiting resolve_device(),
+        # in record order; finished events return to a per-device pool
+        self._pending: deque = deque(maxlen=MAX_PENDING_PAIRS)
+        self._free_events: dict[torch.device, list] = {}
 
     @contextmanager
-    def span(self, name: str):
+    def span(self, name: str, device: torch.device | None = None):
+        """Time the body on the host clock; yields a SpanWork whose
+        `bytes` the body may set. With a CUDA `device`, an event pair on
+        its current stream brackets the body's launches."""
+        rng = None
+        if torch.autograd._profiler_enabled():
+            rng = record_function(name)
+            rng.__enter__()
+        start = self._event(device) if device is not None and device.type == "cuda" else None
+        work = SpanWork()
         wall = time.time()
         t0 = time.perf_counter()
         try:
-            yield
+            yield work
         finally:
-            self.record(name, int((time.perf_counter() - t0) * 1e6), start_s=wall)
+            dur_us = int((time.perf_counter() - t0) * 1e6)
+            end = self._event(device) if start is not None else None
+            self.record(name, dur_us, start_s=wall, nbytes=work.bytes)
+            if end is not None:
+                with self._lock:
+                    self._pending.append((name, device, start, end))
+            if rng is not None:
+                rng.__exit__(None, None, None)
+
+    def _event(self, device: torch.device):
+        """A timing event from the pool, recorded on `device`'s current
+        stream (no synchronisation)."""
+        with self._lock:
+            free = self._free_events.get(device)
+            ev = free.pop() if free else None
+        if ev is None:
+            ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+
+    def resolve_device(self) -> int:
+        """Add every finished event pair to its span's device time, in
+        record order, stopping at the first pair the stream has not
+        reached (`Event.query()`: never a synchronise). Call it where the
+        program has already waited for the card. Returns the pairs read."""
+        n = 0
+        with self._lock:
+            while self._pending:
+                name, device, start, end = self._pending[0]
+                if not (end.query() and start.query()):
+                    break
+                self._pending.popleft()
+                agg = self._agg[name]
+                agg.device_us += 1e3 * start.elapsed_time(end)
+                agg.device_count += 1
+                self._free_events.setdefault(device, []).extend((start, end))
+                n += 1
+        return n
 
     def record(self, name: str, duration_us: int, start_s: float | None = None,
                *, trace_id: str = "", span_id: str = "",
-               parent_span_id: str = "", window: str = ""):
+               parent_span_id: str = "", window: str = "", nbytes: int | None = None):
         """Record a pre-measured span — for stages whose work is split
         across non-contiguous host sections (e.g. the sharded advance:
         sketch close before the append, fold after) that must count as
         ONE logical span so cross-path stage attribution compares.
         Optional trace/parent ids + the per-window correlation key ride
-        into the export ring (lineage-context stage spans)."""
+        into the export ring (lineage-context stage spans); `nbytes`
+        adds to the span's work count."""
         rec = SpanRecord(name, time.time() if start_s is None else start_s,
                          int(duration_us), trace_id=trace_id, span_id=span_id,
                          parent_span_id=parent_span_id, window=window)
@@ -219,13 +351,14 @@ class SpanTracer:
             agg = self._agg.get(name)
             if agg is None:
                 agg = self._agg[name] = _Agg(self.hist_spec.bins)
-            agg.add(rec.duration_us, bin_idx)
+            agg.add(rec.duration_us, bin_idx, nbytes)
 
     # -- read faces -----------------------------------------------------
     def summary(self) -> dict[str, dict]:
         """Per-stage aggregates, JSON-able (the bench snapshot shape) —
         now with the log-histogram quantiles, so BENCH files
-        carry p50/p95/p99 stage attribution next to count/avg/max."""
+        carry p50/p95/p99 stage attribution next to count/avg/max, and
+        `bytes` / `device_us` / `device_count` where measured."""
         with self._lock:
             out = {}
             for name, a in sorted(self._agg.items()):
@@ -240,6 +373,7 @@ class SpanTracer:
                         f"p{int(q * 100)}_us": round(float(v), 1)
                         for q, v in zip(SPAN_QUANTILES, qv)
                     },
+                    **a.extra(),
                 }
             return out
 
@@ -269,46 +403,28 @@ class SpanTracer:
             return None
         return loghist_quantiles_np(hist, self.hist_spec, qs)
 
-    def tdigest(self, name: str, compression: int = 64):
-        """(means, weights) float32 numpy centroids of one stage's latency
-        histogram — the loghist → t-digest compression the sketch blocks
-        use (ops/tdigest.tdigest_from_loghist), on a small host tensor.
-        None when the stage never ran."""
-        with self._lock:
-            a = self._agg.get(name)
-            hist = None if a is None else a.hist.copy()
-        if hist is None:
-            return None
-        import torch
-
-        from ..ops.histogram import LogHistSpec
-        from ..ops.tdigest import tdigest_from_loghist
-
-        spec = LogHistSpec(bins=self.hist_spec.bins, vmin=self.hist_spec.vmin,
-                           gamma=self.hist_spec.gamma)
-        m, w = tdigest_from_loghist(torch.from_numpy(hist[None, :].astype(np.int32)), spec,
-                                    compression=compression)
-        return m[0].numpy(), w[0].numpy()
-
     def get_counters(self) -> dict[str, int | float]:
         """Countable face: flat `<stage>.count/.total_us/.max_us` fields
-        plus the log-histogram p50/p95/p99 lanes — dogfooded
+        plus the log-histogram p50/p95/p99 lanes, and
+        `<stage>.bytes/.device_us/.device_count` where measured — dogfooded
         via integration/dfstats into deepflow_system, where
         `ingest.dispatch.p99_us` becomes the
         `tpu_pipeline_spans_ingest_dispatch_p99_us` metric a span-latency
         alert rule keys on. Pure numpy, fetch-free, safe from a ticking
         collector thread."""
         with self._lock:
-            aggs = [(name, a.count, a.total_us, a.max_us, a.hist.copy())
+            aggs = [(name, a.count, a.total_us, a.max_us, a.hist.copy(), a.extra())
                     for name, a in sorted(self._agg.items())]
         out: dict[str, int | float] = {}
-        for name, count, total_us, max_us, hist in aggs:
+        for name, count, total_us, max_us, hist, extra in aggs:
             out[f"{name}.count"] = count
             out[f"{name}.total_us"] = total_us
             out[f"{name}.max_us"] = max_us
             qv = loghist_quantiles_np(hist, self.hist_spec, SPAN_QUANTILES)
             for q, v in zip(SPAN_QUANTILES, qv):
                 out[f"{name}.p{int(q * 100)}_us"] = round(float(v), 1)
+            for k, v in extra.items():
+                out[f"{name}.{k}"] = v
         return out
 
     def recent(self, name: str | None = None) -> list[SpanRecord]:

@@ -399,10 +399,8 @@ def test_span_hist_quantiles_match_exact_percentiles():
     c = tr.get_counters()
     assert c["stage.x.p50_us"] == pytest.approx(qv[0], rel=1e-3)
     assert "p99_us" in tr.summary()["stage.x"]
-    m, w = tr.tdigest("stage.x")
-    assert m.dtype == np.float32 and w.sum() == pytest.approx(len(durs))
     assert sum(n for _, n in tr.hist_dump()["stage.x"]) == len(durs)
-    assert tr.quantiles("never.ran") is None and tr.tdigest("never.ran") is None
+    assert tr.quantiles("never.ran") is None
 
 
 def test_span_tracer_threaded_stress():
