@@ -361,3 +361,41 @@ def unpack_flush_rows(rows: np.ndarray, num_tags: int):
     t0 = FLUSH_META_COLS
     meters = np.ascontiguousarray(rows[:, t0 + num_tags:]).view(np.float32)
     return rows[:, 0], rows[:, 1], rows[:, 2], rows[:, t0:t0 + num_tags], meters
+
+
+def pack_flush_blocks(packed: torch.Tensor, total: int, num_tags: int,
+                      tail=()) -> torch.Tensor:
+    """The drain's ONE row transfer as a flat int32 device buffer: the
+    first `total` rows of a packed [S, 3+T+M] flush matrix as column
+    blocks — window ids, key_hi, key_lo ([total] each), tags [total, T],
+    meters [total, M], each contiguous — then every tensor of `tail`
+    flattened, in order. Each block is one strided copy into the buffer,
+    with no intermediate."""
+    k, cols = FLUSH_META_COLS, packed.shape[1]
+    rows = packed[:total]
+    out = torch.empty(total * cols + sum(t.numel() for t in tail), dtype=torch.int32,
+                      device=packed.device)
+    o = k * total
+    out[:o].view(k, total).copy_(rows[:, :k].t())
+    for a, b in ((k, k + num_tags), (k + num_tags, cols)):
+        n = total * (b - a)
+        out[o:o + n].view(total, b - a).copy_(rows[:, a:b])
+        o += n
+    for t in tail:
+        out[o:o + t.numel()].view(t.shape).copy_(t)
+        o += t.numel()
+    return out
+
+
+def unpack_flush_blocks(flat: np.ndarray, total: int, num_tags: int, row_cols: int):
+    """The host side of `pack_flush_blocks`: (window, key_hi, key_lo
+    [total] u32, tags [total, T] u32, meters [total, M] f32, the offset
+    past them) — contiguous views of the fetched u32 `flat`, no copy."""
+    k = FLUSH_META_COLS
+    win, key_hi, key_lo = flat[:k * total].reshape(k, total)
+    o = k * total
+    tags = flat[o:o + total * num_tags].reshape(total, num_tags)
+    o += total * num_tags
+    num_meters = row_cols - k - num_tags
+    meters = flat[o:o + total * num_meters].view(np.float32).reshape(total, num_meters)
+    return win, key_hi, key_lo, tags, meters, o + total * num_meters

@@ -14,7 +14,10 @@ fetches that block (one transfer), and a window advance costs two more
 (the scalar vector [row count, pending sketch blocks, closed wide
 slots], then ONE packed transfer of flush rows ‖ closed sketch blocks ‖
 their window ids ‖ the wide arena's rows and ids when a wide slot closed),
-independent of batch size and of how many windows closed. Every
+independent of batch size and of how many windows closed. The flush
+rows ride that transfer as column blocks (window ids, keys, tags,
+meters), so the host splits them into windows by slicing alone, and on
+a CUDA device the transfer lands in page-locked host memory. Every
 device→host transfer goes through `host_fetch`, so a test can count
 them.
 
@@ -128,19 +131,26 @@ from .stash import (
     _flush_range_impl,
     accum_init,
     check_fold_mode,
+    pack_flush_blocks,
     plan_append,
     stash_fold_counted,
     stash_merge_fold,
     stash_init,
     stash_snapshot_range,
-    unpack_flush_rows,
+    unpack_flush_blocks,
 )
 
 
-def host_fetch(x: torch.Tensor) -> np.ndarray:
+def host_fetch(x: torch.Tensor, out: torch.Tensor | None = None) -> np.ndarray:
     """THE device→host fetch boundary for the windowed path: every
-    transfer WindowManager performs goes through here."""
-    return x.detach().cpu().numpy()
+    transfer WindowManager performs goes through here. With `out` (a
+    host tensor of x's size and dtype: the drain's page-locked landing
+    on a CUDA device) the copy is one DMA into it and the result views
+    it; the returned array keeps `out` alive, so its memory is never
+    handed out again while a view of it lives."""
+    if out is None:
+        return x.detach().cpu().numpy()
+    return out.copy_(x.detach()).numpy()
 
 
 # Versioned on-device counter block — a CONTRACT with the reference
@@ -466,7 +476,12 @@ class _FlushEntry:
 @dataclasses.dataclass
 class FlushedWindow:
     """One closed window's documents, host-resident and compacted
-    (row-major [n, T] u32 tags / [n, M] f32 meters)."""
+    (row-major [n, T] u32 tags / [n, M] f32 meters). From the flush drain
+    and the live read, keys, tags and meters are C-contiguous slices of
+    the row fetch's column blocks, no copies: on a CUDA device they view
+    the page-locked tensor that fetch landed in, which lives as long as
+    any of them (the caching host allocator takes the block back only
+    when the last view dies; nothing is reused by hand)."""
 
     window_idx: int  # absolute window index (timestamp // interval)
     start_time: int  # window start in seconds
@@ -570,6 +585,10 @@ class WindowManager:
         self.n_advances = 0
         self.host_fetches = 0
         self.bytes_fetched = 0
+        # row fetches (drains, live reads) that landed in page-locked
+        # host memory: every one on a CUDA device, none on the CPU
+        self.pinned_fetches = 0
+        self.pinned_bytes = 0
         self.bytes_uploaded = 0  # callers add their upload sizes
         self._pending_flush: list[_FlushEntry] = []
         # per-window sketch plane: device state + the raw-doc step's
@@ -648,14 +667,16 @@ class WindowManager:
             sketch=str(config.sketch is not None), cascade=str(config.cascade is not None),
         )
 
-    def _fetch(self, x: torch.Tensor) -> np.ndarray:
-        """host_fetch behind the SITE_FETCH seam, retried on transient
-        faults (the device tensor stays valid across a failed fetch), +
-        transfer accounting (count + bytes)."""
+    def _fetch(self, x: torch.Tensor, out: torch.Tensor | None = None) -> np.ndarray:
+        """host_fetch (into `out` where given) behind the SITE_FETCH seam,
+        retried on transient faults (the device tensor stays valid across
+        a failed fetch), + transfer accounting (count + bytes, and the
+        fetches that landed in page-locked memory)."""
 
         def once():
             chaos.maybe_fail(chaos.SITE_FETCH)
-            return host_fetch(x)
+            # one argument without a landing: wrappers of the seam take one
+            return host_fetch(x) if out is None else host_fetch(x, out)
 
         def on_retry(_attempt, _exc):
             self.fetch_retries += 1
@@ -663,21 +684,45 @@ class WindowManager:
         arr = retry_call(once, self.retry_policy, on_retry=on_retry, rng=self._retry_rng)
         self.host_fetches += 1
         self.bytes_fetched += arr.nbytes
+        if out is not None and out.is_pinned():
+            self.pinned_fetches += 1
+            self.pinned_bytes += arr.nbytes
         return arr
+
+    def _row_landing(self, buf: torch.Tensor) -> torch.Tensor | None:
+        """Where a row fetch of `buf` lands: on a CUDA device a fresh
+        page-locked host tensor from PyTorch's caching host allocator
+        (the block goes back to its cache when the last array viewing it
+        dies, and the next drain of a similar size reuses it); None on
+        the CPU, whose fetch is a view of `buf`."""
+        if self.device.type != "cuda":
+            return None
+        return torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+
+    def _fetch_rows(self, packed: torch.Tensor, total: int, tail: list) -> np.ndarray:
+        """The ONE row fetch of a drain or a live read: the first `total`
+        rows of `packed` column-blocked on the device, then `tail`
+        (stash.pack_flush_blocks), landed by `_row_landing`, as u32."""
+        buf = pack_flush_blocks(packed, total, self.tag_schema.num_fields, tail)
+        return self._fetch(buf, self._row_landing(buf)).view(np.uint32)
 
     # -- device→host drains ---------------------------------------------
     def _drain_flush(self, entry: _FlushEntry) -> list[FlushedWindow]:
         """Fetch ONE packed flush result and split it into windows: two
         transfers whatever rides along. With the sketch plane or the
         cascade on, the scalar fetch widens to [row count, pending blocks
-        (sketch on), closed wide slots (pool mode), tier row counts…] and
-        the row fetch becomes one int32 concatenation (flush rows ‖ block
-        rows ‖ block window ids, then, when a wide slot closed, every wide
-        row ‖ its window id — the host skips the open ones — then the
-        rows of each tier flush). Spans: flush.wait (the scalar fetch,
-        which waits for the fold and flush still queued on the card),
-        flush.copy (the row fetch, with its bytes), flush.split
-        (`_split_drained`)."""
+        (sketch on), closed wide slots (pool mode), tier row counts…].
+        The row fetch is one int32 buffer built on the device: the flush
+        rows as column blocks (window ids, key_hi, key_lo, tags [n, T],
+        meters [n, M]), then block rows ‖ block window ids, then, when a
+        wide slot closed, every wide row ‖ its window id — the host skips
+        the open ones — then the row-major rows of each tier flush. On a
+        CUDA device it lands in a fresh page-locked host tensor (one DMA,
+        no pageable staging), which the returned windows view for as long
+        as they live. Spans: flush.wait (the scalar fetch, which waits
+        for the fold and flush still queued on the card), flush.copy (the
+        row fetch, with its bytes and, where it landed page-locked, a
+        `pinned` count), flush.split (`_split_drained`)."""
         span = self.tracer.span
         with span(SPAN_FLUSH_WAIT):
             scalars = [entry.total]
@@ -705,28 +750,29 @@ class WindowManager:
             flat = np.zeros((0,), np.uint32)
         else:
             with span(SPAN_FLUSH_COPY) as copy:
-                parts = [entry.packed[:total].reshape(-1)]
+                tail = []
                 for rows, wins in groups:
-                    parts += [rows.reshape(-1), to_i32_bits(wins)]
-                parts += [tf.packed[:t].reshape(-1)
-                          for tf, t in zip(entry.tiers, tier_totals)]
-                flat = self._fetch(torch.cat(parts) if len(parts) > 1 else parts[0]
-                                   ).view(np.uint32)
+                    tail += [rows, to_i32_bits(wins)]
+                tail += [tf.packed[:t] for tf, t in zip(entry.tiers, tier_totals)]
+                pinned = self.pinned_fetches
+                flat = self._fetch_rows(entry.packed, total, tail)
                 copy.bytes = flat.nbytes
+                copy.pinned = self.pinned_fetches - pinned or None
         with span(SPAN_FLUSH_SPLIT):
             return self._split_drained(entry, flat, total, groups, tier_totals)
 
     def _split_drained(self, entry: _FlushEntry, flat: np.ndarray, total: int,
                        groups: list, tier_totals: list) -> list[FlushedWindow]:
-        """The host half of a drain: the fetched rows into windows; the
-        blocks marry their windows, and a block whose window has no exact
-        rows in this drain's range becomes a sketch-only window. Closed
-        blocks then feed the cascade's parent merges, and the tier
-        windows are built."""
+        """The host half of a drain: the fetched column blocks into
+        windows by slicing (`_split_rows`: no copy of a row); the blocks
+        marry their windows, and a block whose window has no exact rows
+        in this drain's range becomes a sketch-only window. Closed blocks
+        then feed the cascade's parent merges, and the tier windows are
+        built from their row-major rows."""
         row_cols = entry.packed.shape[1]
-        o = total * row_cols
+        *cols, o = unpack_flush_blocks(flat, total, self.tag_schema.num_fields, row_cols)
         self.total_flushed += total
-        flushed = self._split_rows(flat[:o].reshape(total, row_cols))
+        flushed = self._split_rows(*cols)
         for rows, _ in groups:
             k, width = rows.shape
             block_rows = flat[o:o + k * width].reshape(k, width)
@@ -768,25 +814,24 @@ class WindowManager:
                                                      self.max_held_tier_windows)
         return flushed
 
-    def _split_rows(self, rows: np.ndarray, *, partial: bool = False) -> list[FlushedWindow]:
-        """Packed (window, stash position)-ordered rows → per-window
-        FlushedWindows; the flush drain and the live snapshot
-        (partial=True) split alike."""
-        total = rows.shape[0]
-        if total == 0:
-            return []
-        win, key_hi, key_lo, tags, meters = unpack_flush_rows(
-            rows, self.tag_schema.num_fields
-        )
+    def _split_rows(self, win, key_hi, key_lo, tags, meters, *,
+                    partial: bool = False) -> list[FlushedWindow]:
+        """(window, stash position)-ordered column blocks → per-window
+        FlushedWindows of contiguous slices; the flush drain and the live
+        snapshot (partial=True) split alike. The window ids come sorted,
+        so each window's end is one binary search: the cost follows the
+        windows present, not the rows."""
         flushed = []
-        bounds = np.flatnonzero(np.r_[True, win[1:] != win[:-1]]).tolist() + [total]
-        for a, b in zip(bounds, bounds[1:]):
-            w = int(win[a])
+        a, total = 0, win.shape[0]
+        while a < total:
+            w = win[a]
+            b = int(np.searchsorted(win, w, side="right"))
             flushed.append(FlushedWindow(
-                window_idx=w, start_time=w * self.config.interval,
+                window_idx=int(w), start_time=int(w) * self.config.interval,
                 key_hi=key_hi[a:b], key_lo=key_lo[a:b], tags=tags[a:b],
                 meters=meters[a:b], count=b - a, partial=partial,
             ))
+            a = b
         return flushed
 
     def _drain_ready(self, ready: list[_FlushEntry]) -> list[FlushedWindow]:
@@ -1025,17 +1070,16 @@ class WindowManager:
         # the row count travels as 4 bytes, as the reference's does
         total_i = int(self._fetch(total.to(torch.int32)))
         row_cols = packed.shape[1]
-        parts = [packed[:total_i].reshape(-1)]
+        tail = []
         if self.sk is not None:
             blocks = _flatten_open_snapshot(self.sk)
-            parts += [blocks.reshape(-1), to_i32_bits(self.sk.win)]
+            tail += [blocks, to_i32_bits(self.sk.win)]
         if total_i or self.sk is not None:
-            flat = self._fetch(torch.cat(parts) if len(parts) > 1 else parts[0]
-                               ).view(np.uint32)
+            flat = self._fetch_rows(packed, total_i, tail)
         else:
             flat = np.zeros((0,), np.uint32)
-        nb = total_i * row_cols
-        windows = self._split_rows(flat[:nb].reshape(total_i, row_cols), partial=True)
+        *cols, nb = unpack_flush_blocks(flat, total_i, self.tag_schema.num_fields, row_cols)
+        windows = self._split_rows(*cols, partial=True)
         if self.sk is not None:
             r, width = blocks.shape
             block_rows = flat[nb:nb + r * width].reshape(r, width)

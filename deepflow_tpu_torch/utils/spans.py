@@ -15,7 +15,9 @@ over the reference's tracer:
     sit on the profiler's timeline beside the kernels they launch; with
     no profiler only the enabled flag is read;
   * a work count — `with tracer.span(name) as sp: ...; sp.bytes = n`
-    adds `n` to the span's `bytes` total;
+    adds `n` to the span's `bytes` total, and `sp.pinned = k` adds `k`
+    to its `pinned` count (transfers that landed in page-locked host
+    memory: the drain's row fetch on a CUDA device);
   * device time — `span(name, device=d)` with a CUDA device records a
     timing-event pair on the current stream around the span's launches
     (events from a small reused pool). `resolve_device()` reads the
@@ -31,7 +33,8 @@ Faces:
   * `summary()` — per-stage count/total/max/last aggregates with the
     log-histogram p50/p95/p99, plus `bytes` (spans that carried a work
     count) and `device_us` / `device_count` (resolved pairs only;
-    absent on a CPU device), for bench JSON and `telemetry()`;
+    absent on a CPU device) and `pinned` (spans that carried one), for
+    bench JSON and `telemetry()`;
   * `get_counters()` — a flat Countable field map, so the tracer
     registers on `utils/stats.StatsCollector` like any component and
     its aggregates dogfood into the `deepflow_system` table;
@@ -205,8 +208,8 @@ SPAN_QUANTILES = (0.5, 0.95, 0.99)
 
 
 class _Agg:
-    __slots__ = ("count", "total_us", "max_us", "last_us", "hist", "bytes", "device_us",
-                 "device_count")
+    __slots__ = ("count", "total_us", "max_us", "last_us", "hist", "bytes", "pinned",
+                 "device_us", "device_count")
 
     def __init__(self, bins: int):
         self.count = 0
@@ -219,10 +222,12 @@ class _Agg:
         # concurrent feeder-pump + query threads
         self.hist = np.zeros(bins, np.int64)
         self.bytes: int | None = None  # None until a span carries a work count
+        self.pinned: int | None = None  # None until a span reports a page-locked landing
         self.device_us = 0.0  # over resolved event pairs only
         self.device_count = 0
 
-    def add(self, dur_us: int, bin_idx: int, nbytes: int | None = None) -> None:
+    def add(self, dur_us: int, bin_idx: int, nbytes: int | None = None,
+            pinned: int | None = None) -> None:
         self.count += 1
         self.total_us += dur_us
         self.last_us = dur_us
@@ -231,6 +236,8 @@ class _Agg:
         self.hist[bin_idx] += 1
         if nbytes is not None:
             self.bytes = (self.bytes or 0) + int(nbytes)
+        if pinned is not None:
+            self.pinned = (self.pinned or 0) + int(pinned)
 
     def extra(self) -> dict:
         """The work count and the device time, each only where measured
@@ -238,6 +245,8 @@ class _Agg:
         out = {}
         if self.bytes is not None:
             out["bytes"] = self.bytes
+        if self.pinned is not None:
+            out["pinned"] = self.pinned
         if self.device_count:
             out["device_us"] = round(self.device_us, 1)
             out["device_count"] = self.device_count
@@ -245,12 +254,14 @@ class _Agg:
 
 
 class SpanWork:
-    """What a span's body reports: `bytes` moved (None: no work count)."""
+    """What a span's body reports: `bytes` moved and `pinned` transfers
+    landed in page-locked memory (None: not reported)."""
 
-    __slots__ = ("bytes",)
+    __slots__ = ("bytes", "pinned")
 
     def __init__(self):
         self.bytes: int | None = None
+        self.pinned: int | None = None
 
 
 class SpanTracer:
@@ -289,7 +300,7 @@ class SpanTracer:
         finally:
             dur_us = int((time.perf_counter() - t0) * 1e6)
             end = self._event(device) if start is not None else None
-            self.record(name, dur_us, start_s=wall, nbytes=work.bytes)
+            self.record(name, dur_us, start_s=wall, nbytes=work.bytes, pinned=work.pinned)
             if end is not None:
                 with self._lock:
                     self._pending.append((name, device, start, end))
@@ -328,14 +339,16 @@ class SpanTracer:
 
     def record(self, name: str, duration_us: int, start_s: float | None = None,
                *, trace_id: str = "", span_id: str = "",
-               parent_span_id: str = "", window: str = "", nbytes: int | None = None):
+               parent_span_id: str = "", window: str = "", nbytes: int | None = None,
+               pinned: int | None = None):
         """Record a pre-measured span — for stages whose work is split
         across non-contiguous host sections (e.g. the sharded advance:
         sketch close before the append, fold after) that must count as
         ONE logical span so cross-path stage attribution compares.
         Optional trace/parent ids + the per-window correlation key ride
         into the export ring (lineage-context stage spans); `nbytes`
-        adds to the span's work count."""
+        adds to the span's work count, `pinned` to its page-locked
+        landings."""
         rec = SpanRecord(name, time.time() if start_s is None else start_s,
                          int(duration_us), trace_id=trace_id, span_id=span_id,
                          parent_span_id=parent_span_id, window=window)
@@ -351,14 +364,14 @@ class SpanTracer:
             agg = self._agg.get(name)
             if agg is None:
                 agg = self._agg[name] = _Agg(self.hist_spec.bins)
-            agg.add(rec.duration_us, bin_idx, nbytes)
+            agg.add(rec.duration_us, bin_idx, nbytes, pinned)
 
     # -- read faces -----------------------------------------------------
     def summary(self) -> dict[str, dict]:
         """Per-stage aggregates, JSON-able (the bench snapshot shape) —
         now with the log-histogram quantiles, so BENCH files
         carry p50/p95/p99 stage attribution next to count/avg/max, and
-        `bytes` / `device_us` / `device_count` where measured."""
+        `bytes` / `pinned` / `device_us` / `device_count` where measured."""
         with self._lock:
             out = {}
             for name, a in sorted(self._agg.items()):
@@ -406,8 +419,8 @@ class SpanTracer:
     def get_counters(self) -> dict[str, int | float]:
         """Countable face: flat `<stage>.count/.total_us/.max_us` fields
         plus the log-histogram p50/p95/p99 lanes, and
-        `<stage>.bytes/.device_us/.device_count` where measured — dogfooded
-        via integration/dfstats into deepflow_system, where
+        `<stage>.bytes/.pinned/.device_us/.device_count` where measured —
+        dogfooded via integration/dfstats into deepflow_system, where
         `ingest.dispatch.p99_us` becomes the
         `tpu_pipeline_spans_ingest_dispatch_p99_us` metric a span-latency
         alert rule keys on. Pure numpy, fetch-free, safe from a ticking
