@@ -266,6 +266,54 @@ class PipelineConfig:
                 )
 
 
+def rollup_step(p, acc, offset: int, start_window, stash_valid, stash_evict,
+                feeder_shed: int, fold_rows, casc_lanes, snap_lanes, sk, tags: dict, meters,
+                valid):
+    """One batch: [pre-reduce →] [sketch plane →] fanout →
+    fingerprint → counter block (with the cascade's [rows, shed] and
+    the live read's [reads, bytes] lanes) → ring append, under the
+    spans step.prereduce, step.sketch and step.fanout (host and
+    device time). Returns (acc, counter block), plus the sketch plane
+    when it is on. `start_window` is a host int or the device gate
+    (stats_ring > 1). `p` is the pipeline, or one shard of a sharded
+    one (parallel/sharded.py): it supplies `config`, `fanout_fn`,
+    `meter_schema`, `_sum_cols` / `_max_cols`, `tracer` and `device`."""
+    window_cfg = p.config.window
+    interval = window_cfg.interval
+    span, dev = p.tracer.span, p.device
+    aux = None
+    cap_u = p.config.batch_unique_cap
+    if cap_u is not None:
+        with span(SPAN_STEP_PREREDUCE, dev):
+            tags, meters, valid, aux = batch_prereduce(
+                tags, meters, valid, interval, cap_u, p._sum_cols, p._max_cols
+            )
+    if sk is not None:
+        # from the pre-reduced rows, before the fanout: a flow counts
+        # once (doc-lane replication would multiply its weights)
+        with span(SPAN_STEP_SKETCH, dev):
+            sk = sketch_flow_rows(sk, window_cfg.sketch.hist, tags, meters, valid,
+                                  start_window, interval=interval,
+                                  delay=window_cfg.delay,
+                                  meter_ix=p.meter_schema.index)
+    with span(SPAN_STEP_FANOUT, dev):
+        doc_tags, doc_meters, ts, doc_valid = p.fanout_fn(
+            tags, meters, valid, p.config.fanout
+        )
+        hi, lo, excess = _doc_fingerprint(doc_tags, with_excess=True)
+        gated, window, block = batch_counter_block(
+            ts, doc_valid, start_window, interval, aux=aux,
+            excess_hits=((excess != 0) & doc_valid).sum(),
+            stash_valid=stash_valid, stash_evictions=stash_evict,
+            ring_fill=offset, feeder_shed=feeder_shed, fold_rows=fold_rows,
+            cascade_rows=casc_lanes[0], cascade_shed=casc_lanes[1],
+            snapshot_reads=snap_lanes[0], snapshot_bytes=snap_lanes[1],
+            **sketch_counter_lanes(sk),
+        )
+        acc = _append_impl(acc, window, hi, lo, doc_tags, doc_meters, gated, offset)
+    return (acc, block) if sk is None else (acc, block, sk)
+
+
 @dataclasses.dataclass
 class StagedBatch:
     """A bucket-padded batch already uploaded to the pipeline's device
@@ -339,50 +387,7 @@ class RollupPipeline:
         self._lineage = tracker
         self.wm.attach_lineage(tracker)
 
-    def _step(self, acc, offset: int, start_window, stash_valid, stash_evict,
-              feeder_shed: int, fold_rows, casc_lanes, snap_lanes, sk, tags: dict, meters,
-              valid):
-        """One batch: [pre-reduce →] [sketch plane →] fanout →
-        fingerprint → counter block (with the cascade's [rows, shed] and
-        the live read's [reads, bytes] lanes) → ring append, under the
-        spans step.prereduce, step.sketch and step.fanout (host and
-        device time). Returns (acc, counter block), plus the sketch plane
-        when it is on. `start_window` is a host int or the device gate
-        (stats_ring > 1)."""
-        window_cfg = self.config.window
-        interval = window_cfg.interval
-        span, dev = self.tracer.span, self.device
-        aux = None
-        cap_u = self.config.batch_unique_cap
-        if cap_u is not None:
-            with span(SPAN_STEP_PREREDUCE, dev):
-                tags, meters, valid, aux = batch_prereduce(
-                    tags, meters, valid, interval, cap_u, self._sum_cols, self._max_cols
-                )
-        if sk is not None:
-            # from the pre-reduced rows, before the fanout: a flow counts
-            # once (doc-lane replication would multiply its weights)
-            with span(SPAN_STEP_SKETCH, dev):
-                sk = sketch_flow_rows(sk, window_cfg.sketch.hist, tags, meters, valid,
-                                      start_window, interval=interval,
-                                      delay=window_cfg.delay,
-                                      meter_ix=self.meter_schema.index)
-        with span(SPAN_STEP_FANOUT, dev):
-            doc_tags, doc_meters, ts, doc_valid = self.fanout_fn(
-                tags, meters, valid, self.config.fanout
-            )
-            hi, lo, excess = _doc_fingerprint(doc_tags, with_excess=True)
-            gated, window, block = batch_counter_block(
-                ts, doc_valid, start_window, interval, aux=aux,
-                excess_hits=((excess != 0) & doc_valid).sum(),
-                stash_valid=stash_valid, stash_evictions=stash_evict,
-                ring_fill=offset, feeder_shed=feeder_shed, fold_rows=fold_rows,
-                cascade_rows=casc_lanes[0], cascade_shed=casc_lanes[1],
-                snapshot_reads=snap_lanes[0], snapshot_bytes=snap_lanes[1],
-                **sketch_counter_lanes(sk),
-            )
-            acc = _append_impl(acc, window, hi, lo, doc_tags, doc_meters, gated, offset)
-        return (acc, block) if sk is None else (acc, block, sk)
+    _step = rollup_step
 
     def _pad_target(self, rows: int) -> int:
         buckets = self.config.bucket_sizes

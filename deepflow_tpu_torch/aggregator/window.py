@@ -528,6 +528,28 @@ class OpenSnapshot:
     seq: int = 0
 
 
+def split_rows(win, key_hi, key_lo, tags, meters, interval: int, *,
+               partial: bool = False) -> list[FlushedWindow]:
+    """Window-ordered column blocks (`stash.unpack_flush_blocks`) →
+    per-window FlushedWindows of contiguous slices; the flush drain and
+    the live snapshot (partial=True) split alike, on one card or across
+    shards (parallel/sharded.py). The window ids come sorted, so each
+    window's end is one binary search: the cost follows the windows
+    present, not the rows."""
+    flushed = []
+    a, total = 0, win.shape[0]
+    while a < total:
+        w = win[a]
+        b = int(np.searchsorted(win, w, side="right"))
+        flushed.append(FlushedWindow(
+            window_idx=int(w), start_time=int(w) * interval,
+            key_hi=key_hi[a:b], key_lo=key_lo[a:b], tags=tags[a:b],
+            meters=meters[a:b], count=b - a, partial=partial,
+        ))
+        a = b
+    return flushed
+
+
 def attach_open_sketch_blocks(windows: list[FlushedWindow], merged: dict, *,
                               interval: int, num_tags: int,
                               num_meters: int) -> list[FlushedWindow]:
@@ -816,23 +838,8 @@ class WindowManager:
 
     def _split_rows(self, win, key_hi, key_lo, tags, meters, *,
                     partial: bool = False) -> list[FlushedWindow]:
-        """(window, stash position)-ordered column blocks → per-window
-        FlushedWindows of contiguous slices; the flush drain and the live
-        snapshot (partial=True) split alike. The window ids come sorted,
-        so each window's end is one binary search: the cost follows the
-        windows present, not the rows."""
-        flushed = []
-        a, total = 0, win.shape[0]
-        while a < total:
-            w = win[a]
-            b = int(np.searchsorted(win, w, side="right"))
-            flushed.append(FlushedWindow(
-                window_idx=int(w), start_time=int(w) * self.config.interval,
-                key_hi=key_hi[a:b], key_lo=key_lo[a:b], tags=tags[a:b],
-                meters=meters[a:b], count=b - a, partial=partial,
-            ))
-            a = b
-        return flushed
+        return split_rows(win, key_hi, key_lo, tags, meters, self.config.interval,
+                          partial=partial)
 
     def _drain_ready(self, ready: list[_FlushEntry]) -> list[FlushedWindow]:
         if not ready:

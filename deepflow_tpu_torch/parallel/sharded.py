@@ -24,20 +24,49 @@ the group's first device, reduces, and hands the result back to every
 shard — on one device a plain amax / sum over a stack.
 
 `ShardedWindowManager` is the host-driven window protocol around it:
-the late gate and the advance are decided on the host before the
-dispatch, an advance drains every shard in ONE scalar fetch plus ONE
-row fetch (the shards' outputs are concatenated on the first shard's
-device first), and `snapshot_open` reads the open span in two. Every
-fetch passes the `aggregator.window.host_fetch` seam (late-bound, so a
-test can count it) behind the `chaos.SITE_FETCH` seam and the retry
+the advance is decided on the host before the dispatch, an advance
+drains every shard in ONE scalar fetch plus ONE row fetch, and
+`snapshot_open` reads the open span in two. The row fetch is the single
+card's (`WindowManager._fetch_rows`): the shards' rows are copied onto
+the first shard's device in window order, laid out as column blocks
+(`stash.pack_flush_blocks`), landed in page-locked host memory on a
+CUDA device and split by slicing (`window.split_rows`). Staging is the
+single card's too: `pack_flow_batch` / `upload_flow_batch` per shard.
+Every fetch passes the `aggregator.window.host_fetch` seam (late-bound,
+so a test can count it) behind the `chaos.SITE_FETCH` seam and the retry
 policy; every dispatch behind `chaos.SITE_DISPATCH`.
+
+`ShardedL4Pipeline` is the single card's pipeline face over the manager,
+one shard a card (BASELINE config 5: an ingester tier whose cards hold
+their own agents' flows): `stage()` / `ingest_staged()` run the single
+card's step (`pipeline.rollup_step`) on each shard in turn; each shard's
+counter block adds up on its card and rides the drain's scalar fetch.
+
+Two steps serve one manager, through `ingest_step(dispatch, ...)`. The
+manager's own `ingest()` (host columns) keeps the step of the JAX
+package's sharded path (`ShardedPipeline.step`): the late rows masked on
+the host, the sketch plane fed the raw rows, no counter block. The
+port's parity tests hold it to that reference bit for bit, sketch plane
+included, and its callers (the feeder's sharded sink, the agent, the
+checkpoint and recovery, rebalance, lineage, the live querier) read its
+counters. The single card's step feeds the plane the pre-reduced rows
+and gates late rows on the device, so it cannot take that place without
+breaking the parity. The fork goes when those callers move to
+`stage()` / `ingest_staged()` and the parity tests hold the facade to
+the single card's `L4Pipeline` instead: then `ShardedPipeline.step`,
+the host late gate and `flow_in` go with the JAX reference.
 
 Self-observability, as in the reference: the manager emits the
 pipeline stage spans on its own tracer (`ingest.dispatch`,
 `window.advance` — ONE span per advance, the sketch close before the
 append and the fold after it measured together — `window.fold`,
-`flush.drain`, `query.snapshot`; the sharded path has no counter block,
-so no `stats.fetch`), registers its counters (`tpu_sharded_pipeline`)
+`flush.drain` with `flush.wait`, `flush.copy` and `flush.split`,
+`query.snapshot`) and the sharded layers (utils/spans SHARD_SPAN_NAMES:
+`shard.merge` around the cross-shard merges, `shard.gather` around the
+copy onto the first shard's device; the facade adds `stage.pack`,
+`shard.upload` and `shard.step`). It has no `stats.fetch`: a step's
+counter block, where it computes one, waits for the next drain's scalar
+fetch. It registers its counters (`tpu_sharded_pipeline`)
 and spans (`tpu_sharded_pipeline_spans`) on the default StatsCollector
 and its planes on the device-memory ledger with `devices=D`, lists its
 cascade tiers with the server's datasource registry, and reports
@@ -70,8 +99,14 @@ from ..aggregator.cascade import (
     tier_prefix,
     tier_ring_rows,
 )
-from ..aggregator.fanout import FANOUT_LANES, FanoutConfig
-from ..aggregator.pipeline import make_ingest_step
+from ..aggregator.fanout import FANOUT_LANES, FanoutConfig, fanout_l4
+from ..aggregator.pipeline import (
+    PipelineConfig,
+    make_ingest_step,
+    pack_flow_batch,
+    rollup_step,
+    upload_flow_batch,
+)
 from ..aggregator.sketchplane import (
     SENTINEL_WIN,
     PoolConfig,
@@ -93,39 +128,66 @@ from ..aggregator.stash import (
     _merge_fold_impl,
     accum_init,
     check_fold_mode,
+    pack_flush_blocks,
     plan_append,
     stash_init,
     stash_snapshot_range,
     sum_max_cols,
-    unpack_flush_rows,
+    unpack_flush_blocks,
 )
 from ..aggregator.window import (
-    FlushedWindow,
+    CB_EXCESS_HITS,
+    CB_LEN,
+    CB_N_LATE,
+    CB_N_VALID,
+    CB_PREREDUCE_SHED,
+    CB_SKETCH_ROWS,
+    CB_SKETCH_SHED,
+    CB_STASH_EVICTIONS,
+    CB_STASH_OCCUPANCY,
     OpenSnapshot,
     attach_open_sketch_blocks,
     sketch_inputs_from_columns,
+    split_rows,
 )
-from ..datamodel.batch import DocBatch
+from ..datamodel.batch import DocBatch, FlowBatch
 from ..datamodel.schema import FLOW_METER, TAG_SCHEMA
+from ..device import resolve_device
 from ..ops.histogram import LogHistSpec
 from ..ops.segment import SENTINEL_SLOT
-from ..ops.u32 import U32_MAX, from_numpy_u32, to_i32_bits
+from ..ops.u32 import U32_MAX, to_i32_bits
 from ..utils.retry import RetryPolicy, decorrelated_rng, is_dispatch_transient, retry_call
 from ..utils.spans import (
+    SPAN_FLUSH_COPY,
     SPAN_FLUSH_DRAIN,
+    SPAN_FLUSH_SPLIT,
+    SPAN_FLUSH_WAIT,
     SPAN_INGEST_DISPATCH,
     SPAN_QUERY_SNAPSHOT,
+    SPAN_SHARD_GATHER,
+    SPAN_SHARD_MERGE,
+    SPAN_SHARD_STEP,
+    SPAN_SHARD_UPLOAD,
+    SPAN_STAGE_PACK,
     SPAN_WINDOW_ADVANCE,
     SPAN_WINDOW_FOLD,
     SpanTracer,
 )
 from ..utils.stats import register_countable
-from .mesh import MESH_AXES
+from .mesh import MESH_AXES, make_mesh
 
 # the per-window plane is the single-chip SketchState, one per shard
 SketchPlanes = SketchState
 
 AXIS_HOST, AXIS_CHIP = MESH_AXES
+
+# counter-block lanes of ShardedL4Pipeline's steps: those that count one
+# batch add up between drains (host name → lane), the others report the
+# newest dispatch's value, summed over shards
+_CB_SUMMED = {"n_valid": CB_N_VALID, "n_late": CB_N_LATE, "prereduce_shed": CB_PREREDUCE_SHED,
+              "excess_word_hits": CB_EXCESS_HITS}
+_CB_LATEST = {"stash_occupancy": CB_STASH_OCCUPANCY, "stash_evictions": CB_STASH_EVICTIONS,
+              "sketch_rows": CB_SKETCH_ROWS, "sketch_shed": CB_SKETCH_SHED}
 
 
 @dataclasses.dataclass
@@ -243,7 +305,6 @@ class ShardedPipeline:
         self.n_devices = mesh.size
         self.axes = tuple(mesh.axis_names)
         self.devices = mesh.flat()
-        self._tag_names: tuple | None = None  # fixed on the first step()
         self._append, _ = make_ingest_step(config.fanout, config.interval,
                                            batch_unique_cap=config.batch_unique_cap,
                                            device=self.devices[0])
@@ -265,31 +326,27 @@ class ShardedPipeline:
         return [accum_init(cap, TAG_SCHEMA, FLOW_METER, device=d) for d in self.devices]
 
     # -- step -----------------------------------------------------------
-    def shard_inputs(self, tags, meters, valid) -> list[tuple]:
-        """Host flow columns [D·n] → per-shard device lanes: shard d takes
-        rows d·n … (d+1)·n (the reference's contiguous reshape), its tags
-        as ONE packed [T, n] u32 upload in sorted tag-name order."""
+    def pack_shards(self, batch: FlowBatch) -> list[tuple]:
+        """The host half of the upload, per shard: shard d takes rows
+        d·n … (d+1)·n of a [D·n] batch (the reference's contiguous
+        reshape), packed by the single card's `pack_flow_batch` (ONE
+        [T, n] u32 tag matrix in sorted tag-name order)."""
         d = self.n_devices
-        if self._tag_names is None:
-            self._tag_names = tuple(sorted(tags))
-        mat = np.stack([np.asarray(tags[k], dtype=np.uint32) for k in self._tag_names])
-        total = mat.shape[1]
-        if total % d:
-            raise ValueError(f"batch of {total} rows does not split over {d} devices")
-        n = total // d
-        meters = np.asarray(meters, np.float32)
-        valid = np.asarray(valid, bool)
-        out = []
-        for i, dev in enumerate(self.devices):
-            rows = slice(i * n, (i + 1) * n)
-            lanes = from_numpy_u32(mat[:, rows], dev)
-            out.append((
-                {k: lanes[j] for j, k in enumerate(self._tag_names)},
-                # decoded wire frames hand over read-only buffers: copy those
-                torch.from_numpy(np.require(meters[rows], np.float32, ["C", "W"])).to(dev),
-                torch.from_numpy(np.require(valid[rows], bool, ["C", "W"])).to(dev),
-            ))
-        return out
+        if batch.size % d:
+            raise ValueError(f"batch of {batch.size} rows does not split over {d} devices")
+        n = batch.size // d
+        return [pack_flow_batch(FlowBatch(
+            tags={k: v[i * n:(i + 1) * n] for k, v in batch.tags.items()},
+            meters=batch.meters[i * n:(i + 1) * n], valid=batch.valid[i * n:(i + 1) * n]))
+            for i in range(d)]
+
+    def shard_inputs(self, tags, meters, valid) -> list[tuple]:
+        """Host flow columns [D·n] → per-shard device lanes:
+        `pack_shards`, then the single card's `upload_flow_batch` to
+        each shard's device."""
+        batch = FlowBatch(tags=tags, meters=np.asarray(meters), valid=np.asarray(valid))
+        return [upload_flow_batch(packed, dev)
+                for packed, dev in zip(self.pack_shards(batch), self.devices)]
 
     def step(self, stash, acc, offset, sketches, tags, meters, valid,
              start_window: int = 0, close_below: int = 0):
@@ -549,8 +606,23 @@ class ShardedWindowManager:
         self.host_fetches = 0
         self.bytes_fetched = 0
         self.bytes_uploaded = 0
-        # live read plane (host ints are the only accounting: the sharded
-        # path has no counter block)
+        # row fetches (drains, live reads) that landed in page-locked host
+        # memory: every one where the first shard is a CUDA device
+        self.pinned_fetches = 0
+        self.pinned_bytes = 0
+        # the drain's row fetch is the single card's (WindowManager's
+        # _row_landing / _fetch_rows), from the first shard's device
+        self.device = pipe.devices[0]
+        self.tag_schema = TAG_SCHEMA
+        # steps that compute the single card's counter block
+        # (ShardedL4Pipeline): each shard's running block on its device,
+        # the lane masks, and the host counters its fetches fill
+        self._cb: list | None = None
+        self._cb_masks: dict = {}
+        self.cb_counters = dict.fromkeys([*_CB_SUMMED, *_CB_LATEST], 0)
+        self.stash_occupancy = 0
+        # live read plane (host ints are the only accounting: no counter
+        # block carries the snapshot lanes here)
         self.snapshot_reads = 0
         self.snapshot_bytes = 0
         self.snapshot_seq = 0
@@ -589,12 +661,13 @@ class ShardedWindowManager:
     # so a test can count it) behind the SITE_FETCH seam, retried on
     # transient faults, with the same count and byte accounting
     _fetch = window_mod.WindowManager._fetch
+    _row_landing = window_mod.WindowManager._row_landing
+    _fetch_rows = window_mod.WindowManager._fetch_rows
 
     def _gather(self, xs) -> torch.Tensor:
         """Per-shard tensors flattened and concatenated in shard order on
         the first shard's device — one fetch then covers the mesh."""
-        dev0 = self.pipe.devices[0]
-        return torch.cat([x.reshape(-1).to(dev0) for x in xs])
+        return self._to_first(xs)[0]
 
     def get_counters(self) -> dict:
         """Host ints only (fetch-free). `flow_in` counts pre-fanout flow
@@ -638,7 +711,7 @@ class ShardedWindowManager:
         planes: dict[str, object] = {
             "stash": self.stash,
             "accumulator": self.acc,  # None until the first batch
-            "lanes": [self._fold_rows_dev],
+            "lanes": [self._fold_rows_dev, self._cb, list(self._cb_masks.values())],
         }
         if _pool_mode(self.sketches[0]):
             planes["sketch_pool_hot"] = [
@@ -685,7 +758,8 @@ class ShardedWindowManager:
         default_ledger.deregister(self._ledger_src)
         for src in self._stats_srcs:
             default_collector.deregister(src)
-        self.stash = self.sketches = self.acc = self._fold_rows_dev = None
+        self.stash = self.sketches = self.acc = self._fold_rows_dev = self._cb = None
+        self._cb_masks = {}
         self.tier_stashes, self.tier_accs, self.tier_fills = [], [], []
         self.cascade_lanes = self.global_view = self.pod_1m = None
         self._snapshot_cache = None
@@ -746,16 +820,44 @@ class ShardedWindowManager:
             src, src_total, src_hi = t_packed, t_totals, hi_t
         return tier_flushes
 
+    def _to_first(self, xs) -> tuple[torch.Tensor, int]:
+        """Per-shard tensors flattened and concatenated in shard order on
+        the first shard's device, and the bytes that crossed from another
+        device (0 where the shards share one)."""
+        dev0 = self.pipe.devices[0]
+        moved = sum(x.numel() * x.element_size() for x in xs if x.device != dev0)
+        return torch.cat([x.reshape(-1).to(dev0) for x in xs]), moved
+
+    def _window_major(self, rows, totals) -> tuple[torch.Tensor, int, int]:
+        """Each shard's first `totals[d]` packed flush rows ([n, 3+T+M],
+        (window, stash position)-ordered) on the first shard's device in
+        (window, shard, position) order: a window's rows from every shard
+        contiguous, as one card would hold them. Returns (rows, their
+        count, bytes copied from other devices)."""
+        cols = rows[0].shape[1]
+        flat, moved = self._to_first([x[:int(t)] for x, t in zip(rows, totals)])
+        flat = flat.view(-1, cols)
+        if sum(int(t) > 0 for t in totals) > 1:
+            # a stable sort keeps the shard order inside each window
+            flat = flat[torch.sort(flat[:, 0].long() & 0xFFFFFFFF, stable=True).indices]
+        return flat, flat.shape[0], moved
+
     def _drain_range(self, lo: int, hi: int) -> list:
-        """Flush [lo, hi) from every shard and regroup the rows into per-
+        """Flush [lo, hi) from every shard and split the rows into per-
         window DocBatches; closed sketch blocks, pool wide slots and tier
         rows drain in the same transfers and merge across shards by
         window. The host pays ONE scalar fetch ([totals, fold rows,
-        pending blocks, (closed wide slots), (cascade lanes), tier totals…,
-        (pool lanes)], D lanes each) + ONE concatenated block fetch,
-        whatever D is and however many windows closed."""
+        pending blocks, (closed wide slots), (cascade lanes), tier
+        totals…, (pool lanes), (counter blocks)], D lanes each; span
+        flush.wait) + ONE row fetch (flush.copy), whatever D is and
+        however many windows closed. Before the row fetch the other
+        shards' rows are copied onto the first shard's device in window
+        order (shard.gather), so the fetch is the single card's: column
+        blocks (`stash.pack_flush_blocks`) landed in page-locked host
+        memory on a CUDA device, then split by slicing (flush.split)."""
         p = self.pipe
         d = p.n_devices
+        span = self.tracer.span
         self.stash, packed, totals = p.flush_range(self.stash, lo, hi)
         # forced close at `hi`: every shard closes the same windows, even
         # one whose rows never reached the advancing timestamp
@@ -766,20 +868,26 @@ class ShardedWindowManager:
         fr = self._fold_rows_dev
         if fr is None:
             fr = [torch.zeros((), dtype=torch.int64, device=dv) for dv in p.devices]
-        scal = [self._gather(totals), self._gather(fr), self._gather(pend_n)]
-        if has_wide:
-            scal.append(self._gather([(w != SENTINEL_WIN).sum() for w in wide_wins]))
-        if self._tier_ratios:
-            scal.append(self._gather(self.cascade_lanes))
-        scal += [self._gather(tf[3]) for tf in tier_flushes]
         pool_on = _pool_mode(self.sketches[0])
-        if pool_on:
-            sks = self.sketches
-            scal += [self._gather([sk.pool_spill for sk in sks]),
-                     self._gather([sk.pool_promos for sk in sks]),
-                     self._gather([(sk.slot_of != -1).sum() + (sk.wide_close != SENTINEL_WIN).sum()
-                                   for sk in sks])]
-        bundled = self._fetch(to_i32_bits(torch.cat(scal)))
+        with span(SPAN_FLUSH_WAIT):
+            scal = [self._gather(totals), self._gather(fr), self._gather(pend_n)]
+            if has_wide:
+                scal.append(self._gather([(w != SENTINEL_WIN).sum() for w in wide_wins]))
+            if self._tier_ratios:
+                scal.append(self._gather(self.cascade_lanes))
+            scal += [self._gather(tf[3]) for tf in tier_flushes]
+            if pool_on:
+                sks = self.sketches
+                scal += [self._gather([sk.pool_spill for sk in sks]),
+                         self._gather([sk.pool_promos for sk in sks]),
+                         self._gather([(sk.slot_of != -1).sum() + (sk.wide_close != SENTINEL_WIN).sum()
+                                       for sk in sks])]
+            if self._cb is not None:
+                scal.append(self._gather(self._cb))
+            bundled = self._fetch(to_i32_bits(torch.cat(scal)))
+        if self._cb is not None:
+            self._take_counter_blocks(bundled[-d * CB_LEN:])
+            bundled = bundled[:-d * CB_LEN]
         if pool_on:
             self.sketch_pool_spill = int(bundled[-3 * d:-2 * d].sum())
             self.sketch_promotions = int(bundled[-2 * d:-d].sum())
@@ -798,46 +906,68 @@ class ShardedWindowManager:
             self.cascade_shed = int(lanes_np[:, 1].sum())
             o += 2 * d
         tier_totals_np = [bundled[o + j * d:o + (j + 1) * d] for j in range(len(tier_flushes))]
-        max_t = int(totals_np.max())
-        max_p = int(pend_np.max())
-        tier_max = [int(t.max()) for t in tier_totals_np]
-        if max_t == 0 and max_p == 0 and n_wide == 0 and not tier_flushes:
+        total = int(totals_np.sum())
+        tier_total = [int(t.sum()) for t in tier_totals_np]
+        if total == 0 and not pend_np.any() and n_wide == 0 and not tier_flushes:
             # nothing flushed and no tier closed; with a tier flush the
             # drain goes on even when every count is zero — a sketch-only
             # tier window must release its parent block now
             return []
         row_cols = packed[0].shape[1]
-        wide = pend[0].shape[1]
-        if max_t == 0 and max_p == 0 and n_wide == 0 and not any(tier_max):
+        if total == 0 and not pend_np.any() and n_wide == 0 and not any(tier_total):
             flat = np.zeros((0,), np.uint32)  # nothing to transfer
         else:
-            parts = [self._gather([x[:max_t] for x in packed]),
-                     self._gather([x[:max_p] for x in pend]),
-                     self._gather([to_i32_bits(x[:max_p]) for x in pend_win])]
-            if n_wide:
-                # the whole (small) arena: the host filters SENTINEL wins
-                parts += [self._gather(wide_rows),
-                          self._gather([to_i32_bits(w) for w in wide_wins])]
-            for (_, _, t_packed, _, _, _), tm in zip(tier_flushes, tier_max):
-                parts.append(self._gather([x[:tm] for x in t_packed]))
-            flat = self._fetch(torch.cat(parts)).view(np.uint32)
-        nb = d * max_t * row_cols
-        npend = d * max_p * wide
-        block = flat[:nb].reshape(d, max_t, row_cols)
-        pend_rows = flat[nb:nb + npend].reshape(d, max_p, wide)
-        pend_wins = flat[nb + npend:nb + npend + d * max_p].reshape(d, max_p)
-        to = nb + npend + d * max_p
+            with span(SPAN_SHARD_GATHER, self.device) as gather:
+                rows, total, moved = self._window_major(packed, totals_np)
+                parts = [[x[:int(n)] for x, n in zip(pend, pend_np)],
+                         [to_i32_bits(x[:int(n)]) for x, n in zip(pend_win, pend_np)]]
+                if n_wide:
+                    # the whole (small) arena: the host skips SENTINEL wins
+                    parts += [wide_rows, [to_i32_bits(w) for w in wide_wins]]
+                tail = []
+                for xs in parts:
+                    part, m = self._to_first(xs)
+                    tail.append(part)
+                    moved += m
+                for (_, _, t_packed, _, _, _), t_np in zip(tier_flushes, tier_totals_np):
+                    t_rows, t_n, m = self._window_major(t_packed, t_np)
+                    tail.append(pack_flush_blocks(t_rows, t_n, TAG_SCHEMA.num_fields))
+                    moved += m
+                gather.bytes = moved
+            with span(SPAN_FLUSH_COPY) as copy:
+                pinned = self.pinned_fetches
+                flat = self._fetch_rows(rows, total, tail)
+                copy.bytes = flat.nbytes
+                copy.pinned = self.pinned_fetches - pinned or None
+        with span(SPAN_FLUSH_SPLIT):
+            return self._split_drained(flat, total, row_cols, pend_np, pend[0].shape[1],
+                                       n_wide, wide_rows, tier_flushes, tier_total)
+
+    def _split_drained(self, flat, total, row_cols, pend_np, wide, n_wide, wide_rows,
+                       tier_flushes, tier_total) -> list:
+        """The host half of a drain: the column blocks into per-window
+        DocBatches by slicing, the shards' closed blocks merged by window
+        (shard.merge), then the tier windows."""
+        d = self.pipe.n_devices
+        nt = TAG_SCHEMA.num_fields
+        *cols, o = unpack_flush_blocks(flat, total, nt, row_cols)
+        n_pend = int(pend_np.sum())
+        pend_rows = flat[o:o + n_pend * wide].reshape(n_pend, wide)
+        o += n_pend * wide
+        pend_wins = flat[o:o + n_pend]
+        o += n_pend
         w_rows = w_wins = None
         if n_wide:
             pw, wide_w = wide_rows[0].shape
-            w_rows = flat[to:to + d * pw * wide_w].reshape(d, pw, wide_w)
-            to += d * pw * wide_w
-            w_wins = flat[to:to + d * pw].reshape(d, pw)
-            to += d * pw
-        tier_blocks = []
-        for tm in tier_max:
-            tier_blocks.append(flat[to:to + d * tm * row_cols].reshape(d, tm, row_cols))
-            to += d * tm * row_cols
+            w_rows = flat[o:o + d * pw * wide_w].reshape(d, pw, wide_w)
+            o += d * pw * wide_w
+            w_wins = flat[o:o + d * pw].reshape(d, pw)
+            o += d * pw
+        tier_cols = []
+        for t in tier_total:
+            *t_cols, used = unpack_flush_blocks(flat[o:], t, nt, row_cols)
+            tier_cols.append(t_cols)
+            o += used
         merged: dict[int, object] = {}
 
         def merge_in(rows, wins):
@@ -845,15 +975,17 @@ class ShardedWindowManager:
                 have = merged.get(blk.window)
                 merged[blk.window] = blk if have is None else have.merge(blk)
 
-        for dev in range(d):
-            n = int(pend_np[dev])
-            merge_in(pend_rows[dev, :n], pend_wins[dev, :n])
-        if n_wide:
-            # a window promoted on one shard and compact on another
-            # unifies here
-            for dev in range(d):
-                keep = w_wins[dev] != np.uint32(SENTINEL_WIN)
-                merge_in(w_rows[dev][keep], w_wins[dev][keep])
+        with self.tracer.span(SPAN_SHARD_MERGE):
+            a = 0
+            for n in pend_np:
+                merge_in(pend_rows[a:a + int(n)], pend_wins[a:a + int(n)])
+                a += int(n)
+            if n_wide:
+                # a window promoted on one shard and compact on another
+                # unifies here
+                for dev in range(d):
+                    keep = w_wins[dev] != np.uint32(SENTINEL_WIN)
+                    merge_in(w_rows[dev][keep], w_wins[dev][keep])
         ordered = [merged[w] for w in sorted(merged)]
         self.sketch_blocks_closed += len(ordered)
         self.sketch_blocks_dropped += hold_blocks(self.closed_sketches, ordered,
@@ -863,34 +995,25 @@ class ShardedWindowManager:
             # windows are built, so a parent closing now sees every child
             for blk in ordered:
                 self._feed_tier_block(0, blk.window, blk)
-            self._take_tier_windows(tier_flushes, tier_totals_np, tier_blocks)
-        if max_t == 0:
+            self._take_tier_windows(tier_flushes, tier_cols)
+        if total == 0:
             return []
-        per_dev = [unpack_flush_rows(block[i, :int(t)], TAG_SCHEMA.num_fields)
-                   for i, t in enumerate(totals_np)]
-        flushed = self._group_rows_by_window(per_dev, self.interval)
-        for db in flushed:
-            self.total_flushed += db.size
+        flushed = self._docbatches(cols, self.interval)
+        self.total_flushed += total
         if self.lineage is not None and flushed:
             self.lineage.note_flush_windows(
                 [(int(db.timestamp[0]) // self.interval, db.size) for db in flushed])
         return flushed
 
-    def _group_rows_by_window(self, per_dev, interval: int) -> list:
-        """Shard-major regroup of unpacked flush rows into per-window
-        DocBatches (tier 0 and the cascade tiers alike)."""
-        flushed = []
-        for w in sorted({int(w) for win, *_ in per_dev for w in np.unique(win)}):
-            tags_out = np.concatenate([tags[win == w] for win, _, _, tags, _ in per_dev])
-            n = tags_out.shape[0]
-            flushed.append(DocBatch(
-                tags=tags_out,
-                meters=np.concatenate([met[win == w] for win, _, _, _, met in per_dev]),
-                timestamp=np.full((n,), w * interval, dtype=np.uint32),
-                valid=np.ones((n,), dtype=bool), tag_schema=TAG_SCHEMA,
-                meter_schema=FLOW_METER,
-            ))
-        return flushed
+    @staticmethod
+    def _docbatches(cols, interval: int) -> list:
+        """Window-ordered column blocks → per-window DocBatches whose tags
+        and meters view them (tier 0 and the cascade tiers alike)."""
+        return [DocBatch(tags=f.tags, meters=f.meters,
+                         timestamp=np.full((f.count,), f.start_time, dtype=np.uint32),
+                         valid=np.ones((f.count,), dtype=bool), tag_schema=TAG_SCHEMA,
+                         meter_schema=FLOW_METER)
+                for f in split_rows(*cols, interval)]
 
     def _feed_tier_block(self, tier: int, window: int, blk) -> None:
         """Merge one closed child block into its parent's pending merge."""
@@ -898,15 +1021,13 @@ class ShardedWindowManager:
             return
         merge_into_parent(self._tier_pending_blocks[tier], window, self._tier_ratios[tier], blk)
 
-    def _take_tier_windows(self, tier_flushes, tier_totals_np, tier_blocks) -> None:
-        """Fetched tier rows → per-window tier DocBatches (merged across
-        shards, window order) + the parents' merged sketch blocks; closed
-        tier blocks cascade one level up."""
-        for (i, interval, _p, _t, lo_t, hi_t), t_np, rows in zip(
-                tier_flushes, tier_totals_np, tier_blocks):
-            per_dev = [unpack_flush_rows(rows[dev, :int(t)], TAG_SCHEMA.num_fields)
-                       for dev, t in enumerate(t_np)]
-            batches = self._group_rows_by_window(per_dev, interval)
+    def _take_tier_windows(self, tier_flushes, tier_cols) -> None:
+        """Fetched tier column blocks → per-window tier DocBatches (a
+        window's rows of every shard together, window order) + the
+        parents' merged sketch blocks; closed tier blocks cascade one
+        level up."""
+        for (i, interval, _p, _t, lo_t, hi_t), cols in zip(tier_flushes, tier_cols):
+            batches = self._docbatches(cols, interval)
             self.tier_windows_flushed += len(batches)
             if self.lineage is not None and batches:
                 self.lineage.note_tier_windows(
@@ -975,26 +1096,17 @@ class ShardedWindowManager:
             self.stash, self.sketches, self.start_window)
         d = self.pipe.n_devices
         totals_np = self._fetch(self._gather(totals).to(torch.int32))
-        max_t = int(totals_np.max())
-        row_cols = packed[0].shape[1]
+        total = int(totals_np.sum())
         r, wide = blocks[0].shape
-        flat = self._fetch(torch.cat([
-            self._gather([x[:max_t] for x in packed]), self._gather(blocks),
-            self._gather([to_i32_bits(w) for w in wins]),
-        ])).view(np.uint32)
-        nb = d * max_t * row_cols
-        rows = flat[:nb].reshape(d, max_t, row_cols)
-        block_rows = flat[nb:nb + d * r * wide].reshape(d, r, wide)
-        win_np = flat[nb + d * r * wide:].reshape(d, r)
-        per_dev = [unpack_flush_rows(rows[i, :int(t)], TAG_SCHEMA.num_fields)
-                   for i, t in enumerate(totals_np)]
-        windows: list[FlushedWindow] = []
-        for w in sorted({int(w) for win, *_ in per_dev for w in np.unique(win)}):
-            hi_k, lo_k, tg, mt = (np.concatenate([x[k][x[0] == w] for x in per_dev])
-                                  for k in (1, 2, 3, 4))
-            windows.append(FlushedWindow(
-                window_idx=w, start_time=w * self.interval, key_hi=hi_k, key_lo=lo_k,
-                tags=tg, meters=mt, count=int(tg.shape[0]), partial=True))
+        # the drain's layout: the shards' rows in window order on the
+        # first shard's device, column-blocked, then every open slot
+        rows, _, _ = self._window_major(packed, totals_np)
+        tail = [self._to_first(blocks)[0], self._to_first([to_i32_bits(w) for w in wins])[0]]
+        flat = self._fetch_rows(rows, total, tail)
+        *cols, o = unpack_flush_blocks(flat, total, TAG_SCHEMA.num_fields, packed[0].shape[1])
+        windows = split_rows(*cols, self.interval, partial=True)
+        block_rows = flat[o:o + d * r * wide].reshape(d, r, wide)
+        win_np = flat[o + d * r * wide:].reshape(d, r)
         merged: dict[int, object] = {}
         for dev in range(d):
             live = win_np[dev] != np.uint32(SENTINEL_WIN)
@@ -1014,22 +1126,58 @@ class ShardedWindowManager:
         """Feed one flow batch (host columns; the row count divisible by
         the shard count); returns DocBatches of the windows that closed.
         The late gate and the advance are decided on the host before the
-        dispatch."""
+        dispatch; the late rows are masked out on the host, so the
+        shards' steps never see them."""
         ts_np = np.asarray(tags["timestamp"])
         valid_np = np.asarray(valid)
         if not valid_np.any():
             return []
         t_max = int(ts_np[valid_np].max())
         if self.start_window is None:
-            t_min = int(ts_np[valid_np].min())
-            self.start_window = max(0, min(t_min, t_max - self.delay)) // self.interval
+            self._open(int(ts_np[valid_np].min()), t_max)
         late = valid_np & (ts_np // self.interval < self.start_window)
         n_late = int(late.sum())
         if n_late:
             self.drop_before_window += n_late
             valid = valid_np & ~late
         self.total_docs_in += int(valid_np.sum()) - n_late
+        nb = lambda a: getattr(a, "nbytes", 0)
+        self.bytes_uploaded += sum(nb(v) for v in tags.values()) + nb(meters) + nb(valid)
+        cap_u = self.pipe.config.batch_unique_cap
+        # with the pre-reduce on, every append writes 4 × cap rows
+        rows = FANOUT_LANES * (cap_u if cap_u else int(ts_np.shape[0]) // self.pipe.n_devices)
 
+        def dispatch(start_window, close_below):
+            return self.pipe.step(self.stash, self.acc, self.fill, self.sketches, tags, meters,
+                                  valid, start_window=start_window, close_below=close_below)
+
+        window_span = None
+        if self.lineage is not None:
+            # this batch's window span (ts_np is host: the gate above
+            # computed on it, no transfer)
+            live = valid_np & ~late if n_late else valid_np
+            ts_live = ts_np[live]
+            if ts_live.size:
+                window_span = (int(ts_live.min()) // self.interval,
+                               int(ts_live.max()) // self.interval)
+        return self.ingest_step(dispatch, t_max, rows, window_span=window_span)
+
+    def _open(self, t_min: int, t_max: int) -> None:
+        """Open the span on the first batch with valid rows: far enough
+        back that data older than it but within `delay` is accepted."""
+        if self.start_window is None:
+            self.start_window = max(0, min(t_min, t_max - self.delay)) // self.interval
+
+    def ingest_step(self, dispatch, t_max: int, rows: int, *,
+                    window_span: tuple[int, int] | None = None) -> list:
+        """The window protocol around one dispatched batch whose newest
+        valid event time is `t_max` (host): the cross-shard sketch merge
+        when it advances (shard.merge), the ring plan, the dispatch under
+        ingest.dispatch — `dispatch(start_window, close_below)` runs
+        every shard's step on this manager's state and returns (stash,
+        acc, sketches), plus each shard's counter block where it computes
+        one — then the advance's fold and the drain. `rows` is the ring
+        rows one shard's step appends. The span is open (`_open`)."""
         # the advance is decided before the merge: the batch at t_max
         # belongs to the new window, so the sketch views close first (the
         # doc flush follows the merge — rows within `delay` land first)
@@ -1042,15 +1190,13 @@ class ShardedWindowManager:
             # window.advance span, so counts match `window_advances`
             adv_wall = time.time()
             t0 = time.perf_counter()
-            self.sketches, self.global_view, self.pod_1m = self.pipe.window_close(self.sketches)
+            with self.tracer.span(SPAN_SHARD_MERGE, self.device):
+                self.sketches, self.global_view, self.pod_1m = self.pipe.window_close(
+                    self.sketches)
             close_us = int((time.perf_counter() - t0) * 1e6)
 
-        per_dev = int(ts_np.shape[0]) // self.pipe.n_devices
-        # with the pre-reduce on, every append writes 4 × cap rows
-        cap_u = self.pipe.config.batch_unique_cap
-        rows_per_device = FANOUT_LANES * (cap_u if cap_u else per_dev)
         cap = self.acc[0].capacity if self.acc is not None else None
-        plan = plan_append(self.fill, cap, rows_per_device)
+        plan = plan_append(self.fill, cap, rows)
         if plan == "init":
             self._fold()  # pending rows reach the stash before the ring is replaced
             if self.fill:
@@ -1058,21 +1204,17 @@ class ShardedWindowManager:
                     f"accumulator ring re-init with {self.fill} pending per-device rows — "
                     "fold before replacing the ring"
                 )
-            self.acc = self.pipe.init_acc(max(rows_per_device, 1))
+            self.acc = self.pipe.init_acc(max(rows, 1))
             self.fill = 0
         elif plan == "fold":
             self._fold()
-        nb = lambda a: getattr(a, "nbytes", 0)
-        self.bytes_uploaded += sum(nb(v) for v in tags.values()) + nb(meters) + nb(valid)
 
         def dispatch_once():
             # the seam fires before the step, which writes the rings and
             # planes in place: a retried injected fault meets no
             # half-applied step
             chaos.maybe_fail(chaos.SITE_DISPATCH)
-            return self.pipe.step(self.stash, self.acc, self.fill, self.sketches, tags,
-                                  meters, valid, start_window=self.start_window or 0,
-                                  close_below=new_start if advancing else 0)
+            return dispatch(self.start_window or 0, new_start if advancing else 0)
 
         def on_retry(_attempt, _exc):
             self.dispatch_retries += 1
@@ -1080,20 +1222,14 @@ class ShardedWindowManager:
         lin = self.lineage
         d0 = lin.clock() if lin is not None else 0.0
         with self.tracer.span(SPAN_INGEST_DISPATCH):
-            self.stash, self.acc, self.sketches = retry_call(
-                dispatch_once, self.retry_policy, on_retry=on_retry, rng=self._retry_rng,
-                classify=is_dispatch_transient)
+            out = retry_call(dispatch_once, self.retry_policy, on_retry=on_retry,
+                             rng=self._retry_rng, classify=is_dispatch_transient)
+        self.stash, self.acc, self.sketches = out[:3]
+        if len(out) > 3:
+            self._add_counter_blocks(out[3])
         if lin is not None:
-            # bind this batch's window span (ts_np is host: the gate
-            # above computed on it, no transfer)
-            live = valid_np & ~late if n_late else valid_np
-            span = None
-            if live.any():
-                ts_live = ts_np[live]
-                span = (int(ts_live.min()) // self.interval,
-                        int(ts_live.max()) // self.interval)
-            lin.note_dispatch(span, d0)
-        self.fill += rows_per_device
+            lin.note_dispatch(window_span, d0)
+        self.fill += rows
 
         flushed = []
         if advancing:
@@ -1113,9 +1249,49 @@ class ShardedWindowManager:
                 lin.note_advance(self.start_window, new_start, (d0, d0))
             with self.tracer.span(SPAN_FLUSH_DRAIN):
                 flushed = self._drain_range(self.start_window, new_start)
+            self.tracer.resolve_device()
             self.start_window = new_start
             self.n_advances += 1
         return flushed
+
+    # -- counter blocks (ShardedL4Pipeline's steps) -----------------------
+    def _add_counter_blocks(self, blocks: list) -> None:
+        """Fold each shard's counter block of this batch into its device
+        running block: the per-batch lanes add up, the others keep the
+        newest value. The sums ride the next drain's scalar fetch and
+        start again from zero there; no fetch here."""
+        if self._cb is None:
+            self._cb = [torch.zeros_like(b) for b in blocks]
+        self._cb = [torch.where(self._cb_adds(b.device), c + b, b)
+                    for c, b in zip(self._cb, blocks)]
+
+    def _cb_adds(self, device) -> torch.Tensor:
+        """[CB_LEN] bool: the lanes that add up (`_CB_SUMMED`), made once
+        a device."""
+        mask = self._cb_masks.get(device)
+        if mask is None:
+            mask = torch.zeros((CB_LEN,), dtype=torch.bool)
+            mask[list(_CB_SUMMED.values())] = True
+            mask = self._cb_masks[device] = mask.to(device)
+        return mask
+
+    def _take_counter_blocks(self, lanes: np.ndarray) -> None:
+        """The host half: the fetched [D, CB_LEN] running blocks (u32
+        bits) into the host counters, summed over shards; the device
+        sums restart (the per-batch lanes only)."""
+        vec = lanes.view(np.uint32).reshape(self.pipe.n_devices, CB_LEN).astype(np.int64)
+        for name, lane in _CB_SUMMED.items():
+            self.cb_counters[name] += int(vec[:, lane].sum())
+        for name, lane in _CB_LATEST.items():
+            self.cb_counters[name] = int(vec[:, lane].sum())
+        self.stash_occupancy = self.cb_counters["stash_occupancy"]
+        self._cb = [torch.where(self._cb_adds(c.device), 0, c) for c in self._cb]
+
+    def settle_counter_blocks(self) -> None:
+        """Fetch the running blocks now (one fetch) so the host counters
+        hold every dispatched batch; a no-op without counter blocks."""
+        if self._cb is not None:
+            self._take_counter_blocks(self._fetch(to_i32_bits(self._gather(self._cb))))
 
     def attach_lineage(self, tracker) -> None:
         """Wire a tracing/lineage.LineageTracker (the single-chip
@@ -1159,8 +1335,226 @@ class ShardedWindowManager:
         self._fold()
         with self.tracer.span(SPAN_FLUSH_DRAIN):
             flushed = self._drain_range(0, int(SENTINEL_SLOT))
+        self.tracer.resolve_device()
         for db in flushed:
             if self.start_window is not None:
                 self.start_window = max(self.start_window,
                                         int(db.timestamp[0]) // self.interval + 1)
         return flushed
+
+
+@dataclasses.dataclass
+class ShardedStagedBatch:
+    """A batch split over the shards and uploaded, each shard's slice on
+    its device, whose steps have not run yet; with the host facts the
+    window protocol decides on."""
+
+    lanes: list  # per shard: (tags {name: [n] u32}, [n, M] f32 meters, [n] bool)
+    padded_rows: int  # D·n
+    t_min: int  # valid rows' event-time bounds (host)
+    t_max: int
+    n_valid: int
+
+
+@dataclasses.dataclass
+class _ShardStep:
+    """What `pipeline.rollup_step` reads of the pipeline it steps, for one
+    shard: the single card's step runs on this shard's device."""
+
+    config: PipelineConfig
+    tracer: SpanTracer
+    device: torch.device
+    _sum_cols: tuple
+    _max_cols: tuple
+    fanout_fn = staticmethod(fanout_l4)
+    meter_schema = FLOW_METER
+
+
+class ShardedL4Pipeline:
+    """The L4 rollup over D shards, one a card: the single card's
+    pipeline face (`stage`, `ingest_staged`, `drain`, `counters`,
+    `pop_closed_sketches`, `tracer`, `wm`) over `ShardedWindowManager`.
+
+    The deployment is DeepFlow's analyzer tier (BASELINE config 5): each
+    card is an ingester that holds the stash, accumulator ring and
+    sketch plane of its own agents' flows, and the cards' sketch planes
+    merge at every window close. The spec is the single card's
+    `PipelineConfig` with `shards`: `WindowConfig.capacity` and
+    `batch_unique_cap` are per shard, `batch_size` is the whole batch
+    `stage()` takes (shard d gets its d-th contiguous slice), and the
+    window, fold and sketch settings are kept as given. The sketch plane
+    is required; the cascade, the counter ring and the async drain are
+    not supported here.
+
+    Placement: with a CUDA `device`, shard d on card d of `make_mesh`
+    (`device` is card 0); with the CPU, every shard on the CPU; or the
+    shards' devices given as `devices`.
+
+    Per batch: `stage()` packs every shard's slice with the single card's
+    `pack_flow_batch` (span stage.pack) and uploads it with
+    `upload_flow_batch` (one shard.upload a shard, with its bytes);
+    `ingest_staged()` runs the single card's step (`rollup_step`:
+    pre-reduce, sketch plane, fanout, counter block, ring append) on each
+    shard in turn from this thread, each under shard.step with that
+    card's device time. The window protocol, the fold, the cross-card
+    merge and the drain are the manager's: the late gate is the step's
+    own, on the device, against the host's span; each shard's counter
+    block rides the drains' scalar fetch, with no fetch of its own.
+
+    Merge rule of the closed sketch blocks: HLL registers by max,
+    count-min counters and histogram bins by sum (exact, as one card
+    would have them when no flow key spans two cards), and top-K as the
+    union of the shards' candidates with their own votes."""
+
+    def __init__(self, config: PipelineConfig = PipelineConfig(), shards: int = 4, *,
+                 device=None, devices=None):
+        w = config.window
+        if w.sketch is None:
+            raise ValueError("ShardedL4Pipeline needs WindowConfig.sketch: the sharded "
+                             "window manager always holds a sketch plane")
+        if w.cascade is not None or w.stats_ring != 1 or w.async_drain:
+            raise ValueError("ShardedL4Pipeline supports no cascade, stats_ring or "
+                             "async_drain")
+        if config.bucket_sizes is not None or config.batch_size % shards:
+            raise ValueError(f"batch_size {config.batch_size} must split over {shards} "
+                             "shards, without shape buckets")
+        if devices is None:
+            dev = resolve_device(device)
+            if dev.type == "cuda":
+                mesh = make_mesh(shards)
+                first = mesh.flat()[0]
+                if (dev.index if dev.index is not None else torch.cuda.current_device()) \
+                        != first.index:
+                    raise ValueError(f"device {dev} must be the mesh's first card {first}")
+            else:
+                mesh = make_mesh(devices=[dev] * shards)
+        else:
+            mesh = make_mesh(devices=devices)
+        self.config = config
+        sk = w.sketch
+        sharded = ShardedConfig(
+            fanout=config.fanout, interval=w.interval, capacity_per_device=w.capacity,
+            num_services=sk.num_groups, hll_precision=sk.hll_precision, cms_depth=sk.cms_depth,
+            cms_width=sk.cms_width, hist=sk.hist, sketch_ring=w.ring, topk_rows=sk.topk_rows,
+            topk_cols=sk.topk_cols, sketch_pending=sk.pending, sketch_pool=sk.pool,
+            accum_batches=w.accum_batches, batch_unique_cap=config.batch_unique_cap,
+            fold_mode=w.fold_mode)
+        self.shard_pipe = ShardedPipeline(mesh, sharded)
+        self.wm = ShardedWindowManager(self.shard_pipe, w.delay,
+                                       min_snapshot_interval=w.min_snapshot_interval)
+        self.tracer = self.wm.tracer
+        self.devices = self.shard_pipe.devices
+        self.device = self.devices[0]
+        cols = sum_max_cols(FLOW_METER)
+        self._shards = [_ShardStep(config, self.tracer, dev, *cols) for dev in self.devices]
+        # the counter block's cascade and live-read lanes: none here
+        self._zero_lanes = [torch.zeros((2,), dtype=torch.int64, device=dev)
+                            for dev in self.devices]
+
+    # -- staging ------------------------------------------------------------
+    def stage(self, batch: FlowBatch) -> ShardedStagedBatch | None:
+        """Pad to `batch_size`, take the valid rows' event-time bounds,
+        pack every shard's slice (span stage.pack), then upload each
+        slice to its shard's device (span shard.upload a shard, with its
+        bytes). None for an all-padding batch."""
+        span = self.tracer.span
+        with span(SPAN_STAGE_PACK):
+            batch = batch.pad_to(self.config.batch_size)
+            valid = np.asarray(batch.valid, bool)
+            ts = np.asarray(batch.tags["timestamp"])
+            if valid.all():
+                t_min, t_max, n_valid = int(ts.min()), int(ts.max()), valid.shape[0]
+            else:
+                n_valid = int(np.count_nonzero(valid))
+                if not n_valid:
+                    return None
+                t_min, t_max = int(ts[valid].min()), int(ts[valid].max())
+            packed = self.shard_pipe.pack_shards(batch)
+        lanes = []
+        for dev, (names, tags, meters, ok) in zip(self.devices, packed):
+            with span(SPAN_SHARD_UPLOAD) as up:
+                lanes.append(upload_flow_batch((names, tags, meters, ok), dev))
+                up.bytes = tags.nbytes + meters.nbytes + ok.nbytes
+            self.wm.bytes_uploaded += up.bytes
+        return ShardedStagedBatch(lanes=lanes, padded_rows=batch.size, t_min=t_min,
+                                  t_max=t_max, n_valid=n_valid)
+
+    # -- the step -------------------------------------------------------------
+    def ingest(self, batch: FlowBatch) -> list[DocBatch]:
+        """stage() then ingest_staged(); [] for an all-padding batch."""
+        staged = self.stage(batch)
+        return [] if staged is None else self.ingest_staged(staged)
+
+    def ingest_staged(self, staged: ShardedStagedBatch) -> list[DocBatch]:
+        """Run every shard's step for a staged batch, in shard order from
+        this thread; returns the windows that closed."""
+        wm = self.wm
+        wm._open(staged.t_min, staged.t_max)
+        wm.total_docs_in += staged.n_valid
+        cap_u = self.config.batch_unique_cap
+        rows = FANOUT_LANES * (cap_u or staged.padded_rows // len(self.devices))
+
+        def dispatch(start_window, _close_below):
+            # the step derives the sketch span's close from its own rows
+            # and the gate, as on one card
+            stash, accs, sks, blocks = wm.stash, [], [], []
+            fold_rows = wm._fold_rows_dev
+            for d, sh in enumerate(self._shards):
+                zero = self._zero_lanes[d]
+                with _on(sh.device), self.tracer.span(SPAN_SHARD_STEP, sh.device):
+                    acc, block, sk = rollup_step(
+                        sh, wm.acc[d], wm.fill, start_window, stash[d].valid,
+                        stash[d].dropped_overflow, 0,
+                        zero[0] if fold_rows is None else fold_rows[d], zero, zero,
+                        wm.sketches[d], *staged.lanes[d])
+                accs.append(acc)
+                sks.append(sk)
+                blocks.append(block)
+            return stash, accs, sks, blocks
+
+        return wm.ingest_step(dispatch, staged.t_max, rows)
+
+    def drain(self) -> list[DocBatch]:
+        """Close every open window (shutdown path)."""
+        return self.wm.drain()
+
+    def pop_closed_sketches(self) -> list:
+        """The closed windows' sketch blocks, merged across shards
+        (window order)."""
+        return self.wm.pop_closed_sketches()
+
+    # -- counters -----------------------------------------------------------
+    def get_counters(self) -> dict:
+        """Fetch-free: the manager's counters, and the single card's names
+        summed over shards as of the last drain's counter blocks."""
+        wm = self.wm
+        c = wm.cb_counters
+        return {
+            **wm.get_counters(),
+            "doc_in": c["n_valid"] - c["n_late"],
+            "drop_before_window": c["n_late"],
+            "prereduce_dropped": c["prereduce_shed"],
+            "excess_word_hits": c["excess_word_hits"],
+            "stash_occupancy": c["stash_occupancy"],
+            "stash_evictions": c["stash_evictions"],
+            "sketch_rows": c["sketch_rows"],
+            "sketch_shed": c["sketch_shed"],
+        }
+
+    @property
+    def counters(self) -> dict:
+        """get_counters over every dispatched batch, with the stashes' live
+        overflow drops and occupancy (two fetches)."""
+        wm = self.wm
+        wm.settle_counter_blocks()
+        out = self.get_counters()
+        live = wm._fetch(wm._gather([torch.stack([st.dropped_overflow, st.valid.sum()])
+                                     for st in wm.stash])).reshape(-1, 2)
+        out["drop_overflow"] = int(live[:, 0].sum())
+        out["occupancy"] = int(live[:, 1].sum())
+        return out
+
+    def close(self) -> None:
+        """Eager teardown of the manager (its state is dropped)."""
+        self.wm.close()
+        self._zero_lanes = None

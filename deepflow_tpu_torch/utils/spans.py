@@ -134,6 +134,27 @@ ROLLUP_SPAN_NAMES = (
     SPAN_FLUSH_SPLIT,
 )
 
+# The sharded rollup's layers (parallel/sharded.py ShardedL4Pipeline and
+# the ShardedWindowManager under it). `stage()` is stage.pack, then one
+# shard.upload a card (bytes = that card's upload); inside
+# ingest.dispatch one shard.step a card, with that card's device time;
+# shard.merge is the cross-card sketch merge (window_close, card 0's
+# device time, and the host merge of the cards' closed blocks);
+# shard.gather the copy of the other cards' flush rows onto the first
+# card before the drain's row fetch (bytes = bytes copied, card 0's
+# device time: the peer copies do not hold the host).
+SPAN_SHARD_UPLOAD = "shard.upload"
+SPAN_SHARD_STEP = "shard.step"
+SPAN_SHARD_MERGE = "shard.merge"
+SPAN_SHARD_GATHER = "shard.gather"
+
+SHARD_SPAN_NAMES = (
+    SPAN_SHARD_UPLOAD,
+    SPAN_SHARD_STEP,
+    SPAN_SHARD_MERGE,
+    SPAN_SHARD_GATHER,
+)
+
 #: at most this many event pairs wait for resolve_device(); older ones
 #: are dropped unread (a tracer nobody resolves stays bounded)
 MAX_PENDING_PAIRS = 256
